@@ -2,9 +2,11 @@
 card.
 
 Same directory layout and module names as the JAX package, so a reader finds
-each counterpart; PyTorch idiom inside. Ported so far: the Pix2Pix serving
-path (``python -m pai_tpu_torch.report``, ``pai_tpu_torch.api.Pix2Pix``) with
-both fused-SSIM kernels written in CUDA C++ (``pai_tpu_torch/kernels``).
+each counterpart; PyTorch idiom inside. Ported so far: the Pix2Pix and the
+Palette (100-step DDPM sampling) serving paths (``python -m
+pai_tpu_torch.report``, ``pai_tpu_torch.api.Pix2Pix`` / ``Palette``) with both
+fused-SSIM kernels and the flash-attention forward kernel written in CUDA C++
+(``pai_tpu_torch/kernels``).
 
 The package imports ``torch``, numpy and the standard library only — never
 ``jax``, ``flax``, ``orbax`` or anything of ``pai_tpu`` — and its entry points

@@ -5,8 +5,9 @@ of ``pai_tpu/api.py``.
     pred = model.predict(x)                      # NHWC in [-1, 1]
 
 The five class names and their constructor vocabulary are those of the JAX
-package. Ported so far: ``Pix2Pix`` with ``load_from_checkpoint`` and
-``predict``/``__call__``. ``fit`` and the other four classes raise
+package. Ported so far: ``Pix2Pix`` and ``Palette`` with
+``load_from_checkpoint`` and ``predict``/``__call__`` (Palette's runs the
+100-step DDPM chain). ``fit`` and the other three classes raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 
@@ -25,6 +26,7 @@ class _Experiment:
 
     model_name: str = ""
     _roadmap_item: Optional[str] = None  # set on classes not ported yet
+    _fit_roadmap_item = "item 3 (GAN training)"
 
     def __init__(self, in_channels: int = 1, out_channels: int = 1,
                  channel_mults: Sequence[int] = (1, 2, 4, 8, 8, 8, 8, 8),
@@ -67,7 +69,7 @@ class _Experiment:
             **overrides) -> Dict[str, float]:
         raise NotImplementedError(
             "training is not ported to pai_tpu_torch yet: ROADMAP.md Queue A "
-            "item 3 (GAN training)")
+            f"{self._fit_roadmap_item}")
 
     @classmethod
     def load_from_checkpoint(cls, path: str,
@@ -88,15 +90,19 @@ class _Experiment:
         return obj
 
     # -- inference ------------------------------------------------------
+    def _input(self, x) -> torch.Tensor:
+        if self._module is None:
+            raise ValueError("no weights: call load_from_checkpoint")
+        return torch.as_tensor(
+            np.asarray(x) if not isinstance(x, torch.Tensor) else x,
+            dtype=torch.float32, device=self.device)
+
     def predict(self, x, output_process: bool = False) -> torch.Tensor:
         """Eval-mode prediction on an NHWC batch in [-1, 1] (tensor or
         array); the result is a float32 tensor on the model's device."""
-        if self._module is None:
-            raise ValueError("no weights: call load_from_checkpoint")
+        xb = self._input(x)
         if output_process:
             raise ValueError("output_process is only supported by Palette")
-        xb = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor)
-                             else x, dtype=torch.float32, device=self.device)
         with torch.inference_mode():
             return self._module(xb)
 
@@ -124,4 +130,33 @@ class TransUnetGAN(_Experiment):
 
 class Palette(_Experiment):
     model_name = "palette"
-    _roadmap_item = "Queue A item 2 (Palette sampling)"
+    _fit_roadmap_item = "item 4 (Palette training)"
+
+    def __init__(self, in_channels: int = 1, out_channels: int = 1,
+                 channel_mults: Sequence[int] = (1, 1, 2, 2, 4, 4),
+                 attention_res: Sequence[int] = (16, 8),
+                 dropout: float = 0.1, schedule_type: str = "linear",
+                 learn_var: bool = False, precision: str = "32",
+                 image_size: int = 256,
+                 device: Union[str, torch.device] = "cuda"):
+        super().__init__(in_channels, out_channels, channel_mults,
+                         attention_res, dropout, "mse", schedule_type,
+                         learn_var, precision, image_size, device=device)
+
+    def predict(self, x, generator: Optional[torch.Generator] = None,
+                output_process: bool = False):
+        """The 100-step DDPM chain conditioned on ``x``. ``generator`` (on
+        the model's device; seeded 0 when omitted) draws y_T and the steps'
+        noise. ``output_process=True`` returns ``(y_0, process[N, F, H, W,
+        C])``: y_T plus every (timesteps // 7)-th intermediate, F = 9."""
+        from pai_tpu_torch.reporting import palette_predictor
+
+        xb = self._input(x)
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        sample = palette_predictor(
+            self._module, bool(self.hparams.get("learn_variance", False)),
+            output_process, self.device)
+        return sample(xb, generator)
+
+    __call__ = predict

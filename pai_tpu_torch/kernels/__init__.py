@@ -37,9 +37,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 # One library per source file: name -> source under csrc/.
-SOURCES = {"ssim": "ssim.cu"}
+SOURCES = {"ssim": "ssim.cu", "flash_attention": "flash_attention.cu"}
 
-launch_counts: Dict[str, int] = {"ssim_map": 0, "ssim_scalar": 0}
+launch_counts: Dict[str, int] = {"ssim_map": 0, "ssim_scalar": 0,
+                                 "flash_fwd": 0}
+
+# Floating-point operations of the kernels launched so far that PyTorch's
+# ``FlopCounterMode`` cannot see (a ``ctypes`` launch is opaque to it). A
+# wrapper adds its launch's operations where it adds to ``launch_counts``;
+# ``utils.flops.count_flops`` zeroes this before a forward and adds it after.
+launched_flops: int = 0
 
 _lock = threading.Lock()
 _libraries: Dict[str, ctypes.CDLL] = {}

@@ -10,6 +10,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from pai_tpu_torch.models.diffusion_unet import DiffusionUNet
 from pai_tpu_torch.models.pix2pix import Pix2PixUnet
 
 GENERATOR_NAMES = (
@@ -25,7 +26,6 @@ GENERATOR_NAMES = (
 
 # Where ROADMAP.md queues each family that is not ported yet.
 _QUEUED = {
-    "palette": "Queue A item 2 (Palette sampling)",
     "attention_unet": "Queue A item 5 (other generator families)",
     "res18_unet": "Queue A item 5 (other generator families)",
     "res50_unet": "Queue A item 5 (other generator families)",
@@ -55,6 +55,14 @@ def build_generator(
                            channel_mults=tuple(channel_mults),
                            dropout=dropout, dtype=dtype, generator=generator,
                            device=device)
+    if name == "palette":
+        return DiffusionUNet(
+            in_channels=in_channels * 2,
+            out_channels=out_channels * 2 if learn_var else out_channels,
+            inner_channel=128, res_blocks=2,
+            channel_mults=tuple(channel_mults),
+            attn_res=tuple(attention_res), num_heads=4, dropout=dropout,
+            dtype=dtype, generator=generator, device=device)
     if name in _QUEUED:
         raise NotImplementedError(
             f"model '{name}' is not ported to pai_tpu_torch yet: ROADMAP.md "

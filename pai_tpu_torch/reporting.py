@@ -12,12 +12,17 @@ Given a checkpoint and a data manifest, produces under
 
 The model is rebuilt purely from the hyperparameters embedded in the
 checkpoint; ``identity`` evaluates the data against itself without one.
+``palette`` predicts by the 100-step cosine DDPM chain (one generator seeded
+0 for the whole report) and, with ``output_process``, also writes the kept
+frames of the reverse process to ``process/<index>_<k>.png``.
 
 One decode pass, streaming batch by batch. Prediction and every metric run on
 the device under ``torch.inference_mode()``; per batch the predictions, the
 SSIM maps and the per-image numbers come back to the host in one copy. FLOPs
 are PyTorch's ``FlopCounterMode`` count of one real (1, size, size, C)
-forward (see ``utils/flops.py`` for how that differs from XLA's cost model).
+forward — for palette one UNet evaluation ``(probe, probe, gamma=1)``, not
+the chain (see ``utils/flops.py`` for how that differs from XLA's cost model
+and how the flash-attention kernel's operations are included).
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch
 
 from pai_tpu_torch.config import resolve_device
 from pai_tpu_torch.data import BatchLoader, ImageDataset
+from pai_tpu_torch.diffusion import ddpm_sample, make_schedule
 from pai_tpu_torch.utils import metrics
 from pai_tpu_torch.utils.checkpoint import load_checkpoint
 from pai_tpu_torch.utils.flops import count_flops, parameter_count
@@ -39,15 +45,35 @@ from pai_tpu_torch.utils.images import (afmhot_rgb, denormalize, to_int,
 IMAGE_SIZE = 256
 
 
+SAMPLING_STEPS = 100  # the inference schedule: cosine, 100 steps
+
+
 def _rebuild_from_checkpoint(model_name: str, ckpt_path: str, device):
-    """``(eval-mode generator, image_size)`` from a checkpoint alone."""
+    """``(eval-mode generator, image_size, learn_variance)`` from a
+    checkpoint alone."""
     from pai_tpu_torch.restore import rebuild_eval_model
 
     if not ckpt_path:
         raise ValueError(f"model '{model_name}' needs a checkpoint (-c)")
     state_dict, meta = load_checkpoint(ckpt_path)
     h = dict(meta["hparams"], model=model_name)
-    return rebuild_eval_model(state_dict, h, device)
+    generator, image_size = rebuild_eval_model(state_dict, h, device)
+    return generator, image_size, bool(h.get("learn_variance", False))
+
+
+def palette_predictor(unet: torch.nn.Module, learn_var: bool,
+                      output_process: bool, device):
+    """``predict(x, generator)`` running the reverse chain of the inference
+    schedule; with ``output_process`` it returns ``(y_0, frames)``, the
+    frames being y_T plus every (timesteps // 7)-th step."""
+    sched = make_schedule("cosine", SAMPLING_STEPS, device=device)
+    capture = sched.timesteps // 7 if output_process else None
+
+    def predict(x: torch.Tensor, generator: torch.Generator):
+        return ddpm_sample(sched, unet, x, generator, learn_var,
+                           capture_every=capture)
+
+    return predict
 
 
 def chunk_metrics(p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -85,9 +111,22 @@ def run_report(name: str, checkpoint: Optional[str], data: str,
     device = resolve_device(device)
     image_size = IMAGE_SIZE
     generator = None
+    learn_var = False
     if model_name != "identity":
-        generator, image_size = _rebuild_from_checkpoint(
+        generator, image_size, learn_var = _rebuild_from_checkpoint(
             model_name, checkpoint, device)
+    if model_name == "palette":
+        sample = palette_predictor(generator, learn_var, output_process,
+                                   device)
+        noise_source = torch.Generator(device=device).manual_seed(0)
+
+        def predict(x):
+            return sample(x, noise_source)
+    elif generator is None:
+        def predict(x):
+            return x
+    else:
+        predict = generator
 
     dataset = ImageDataset(data, image_size)
     loader = BatchLoader(dataset, batch_size, shuffle=False, pad_mode="zero",
@@ -96,7 +135,9 @@ def run_report(name: str, checkpoint: Optional[str], data: str,
     report_dir = os.path.join(reports_dir, name)
     outputs_dir = os.path.join(report_dir, "outputs")
     maps_dir = os.path.join(report_dir, "ssim_images")
-    for d in (report_dir, outputs_dir, maps_dir):
+    process_dir = os.path.join(report_dir, "process")
+    for d in (report_dir, outputs_dir, maps_dir) + (
+            (process_dir,) if output_process else ()):
         os.makedirs(d, exist_ok=True)
 
     # Each batch is predicted, measured and written out before the next is
@@ -106,12 +147,18 @@ def run_report(name: str, checkpoint: Optional[str], data: str,
     try:
         with torch.inference_mode():
             for batch in loader:
-                pred = batch.x if generator is None else generator(batch.x)
+                pred = predict(batch.x)
+                process = None
+                if output_process:
+                    pred, process = pred
                 p = denormalize(pred)
                 t = denormalize(batch.y)
                 host = unpack_chunk(chunk_metrics(p, t).cpu().numpy(),
                                     p.shape)
                 nv = batch.n_valid
+                first = index
+                if process is not None:  # (n, F, H, W, C)
+                    process = denormalize(process)[:nv].cpu().numpy()
                 ssims.append(host["ssim"][:nv])
                 psnrs.append(host["psnr"][:nv])
                 mses.append(host["mse"][:nv])
@@ -122,6 +169,14 @@ def run_report(name: str, checkpoint: Optional[str], data: str,
                               os.path.join(outputs_dir, stem))
                     write_png(to_int(np.clip(m, 0.0, 1.0)),
                               os.path.join(maps_dir, stem))
+                    if process is not None:
+                        frames = process[index - first]
+                        for k, frame in enumerate(frames):
+                            write_png(
+                                to_int(afmhot_rgb(frame[..., 0])),
+                                os.path.join(
+                                    process_dir,
+                                    f"{str(index).zfill(5)}_{k}.png"))
                     index += 1
     finally:
         loader.close()
@@ -151,7 +206,11 @@ def run_report(name: str, checkpoint: Optional[str], data: str,
         n_params = parameter_count(generator)
         probe = torch.zeros((1, image_size, image_size, 1),
                             dtype=torch.float32, device=device)
-        flops = count_flops(generator, probe)
+        if model_name == "palette":
+            flops = count_flops(generator, probe, probe,
+                                torch.ones((1,), device=device))
+        else:
+            flops = count_flops(generator, probe)
 
     with open(os.path.join(report_dir, "stats.txt"), "w") as f:
         f.write(f"SSIM: {ssim_stat}\n")

@@ -142,8 +142,12 @@ def test_registry_builds_pix2pix_and_names_the_roadmap_for_the_rest():
     from pai_tpu.models import GENERATOR_NAMES as JAX_NAMES
 
     assert GENERATOR_NAMES == JAX_NAMES
+    ported = {"pix2pix": "Pix2PixUnet", "palette": "DiffusionUNet"}
     for name in GENERATOR_NAMES:
-        if name == "pix2pix":
+        if name in ported:
+            built = build_generator(name, channel_mults=(1, 2),
+                                    device="meta")
+            assert type(built).__name__ == ported[name]
             continue
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_generator(name, device="meta")

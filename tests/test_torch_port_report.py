@@ -21,7 +21,8 @@ import pytest
 import torch
 
 from pai_tpu_torch import reporting as port_reporting
-from pai_tpu_torch.api import AttentionUnetGAN, Palette, Pix2Pix
+from pai_tpu_torch.api import (AttentionUnetGAN, Palette, Pix2Pix,
+                               TransUnetGAN)
 from pai_tpu_torch.data import BatchLoader, ImageDataset
 from pai_tpu_torch.interop import state_dict_from_jax
 from pai_tpu_torch.utils import images as ti
@@ -222,7 +223,7 @@ def test_report_cli_surface_and_errors(reports, tmp_path, capsys):
                                   output_process=True, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_reporting.run_report("x", reports["slot"], reports["manifest"],
-                                  "palette", device="cpu",
+                                  "attention_unet", device="cpu",
                                   reports_dir=str(tmp_path))
 
 
@@ -252,7 +253,9 @@ def test_entry_points_default_to_the_card_and_raise_without_one(reports):
 def test_unported_api_surface_names_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Pix2Pix(device="cpu").fit("run", "data.yaml")
-    for cls in (AttentionUnetGAN, Palette):
+    with pytest.raises(NotImplementedError, match="item 4"):
+        Palette(device="cpu").fit("run", "data.yaml")
+    for cls in (AttentionUnetGAN, TransUnetGAN):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cls(device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -45,6 +45,61 @@ def pix2pix_numpy_variables(mults, size, seed):
     return module, params, stats
 
 
+def palette_numpy_variables(mults, attn_res, size, seed, learn_var=False,
+                            inner=32):
+    """(flax module, params, batch_stats) for a Palette DiffusionUNet (2
+    input channels, 2 res blocks, 4 heads, ``inner`` base width) with
+    numpy-made weights. The layers flax zero-initialises (every ResBlock's
+    ``conv_out``, every attention ``proj``, ``out_conv``) get non-zero values
+    like any other layer — at half the scale, so the residual stream grows
+    slowly — or attention and the second half of each ResBlock would not
+    reach the output."""
+    import jax
+    import jax.numpy as jnp
+    from pai_tpu.models.diffusion_unet import DiffusionUNet
+
+    module = DiffusionUNet(in_channels=2, out_channels=2 if learn_var else 1,
+                           inner_channel=inner, res_blocks=2,
+                           channel_mults=tuple(mults),
+                           attn_res=tuple(attn_res), num_heads=4)
+    zeros = jnp.zeros((1, size, size, 1))
+    abstract = jax.eval_shape(
+        lambda: module.init(jax.random.key(0), zeros, zeros,
+                            jnp.zeros((1,)), train=False))
+    rng = np.random.default_rng(seed)
+    params = numpy_tree_like(abstract["params"], rng, "params")
+    stats = numpy_tree_like(abstract["batch_stats"], rng, "stats")
+    for block in params.values():
+        for member in ("conv_out", "proj"):
+            if member in block:
+                block[member]["kernel"] *= 0.5
+    return module, params, stats
+
+
+def port_palette_model(mults, attn_res, params, stats, learn_var=False,
+                       inner=32):
+    """The port's DiffusionUNet of the same shape, in eval mode, carrying
+    ``params``/``batch_stats`` through ``state_dict_from_jax``."""
+    import torch
+    from pai_tpu_torch.interop import state_dict_from_jax
+    from pai_tpu_torch.models.diffusion_unet import DiffusionUNet
+
+    model = DiffusionUNet(in_channels=2, out_channels=2 if learn_var else 1,
+                          inner_channel=inner, res_blocks=2,
+                          channel_mults=tuple(mults),
+                          attn_res=tuple(attn_res), num_heads=4,
+                          generator=torch.Generator().manual_seed(0))
+    model.load_state_dict(
+        state_dict_from_jax("palette", params, stats,
+                            palette_hparams(mults, attn_res)), strict=True)
+    return model.eval()
+
+
+def palette_hparams(mults, attn_res):
+    return {"channel_mults": ",".join(str(m) for m in mults),
+            "attention_res": ",".join(str(a) for a in attn_res)}
+
+
 def blob_image(rng, size):
     """Smooth blobs plus a little texture, uint8 (examples/make_dataset.py
     style)."""
