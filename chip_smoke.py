@@ -54,6 +54,7 @@ file — ends the run with a non-zero exit code and no ``ok`` line.
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -408,8 +409,9 @@ def phase_flash(device):
     expect_raises(ValueError, lambda: flash_attention(*bad_d), "D = 48")
     expect_raises(ValueError, lambda: flash_attention(*ragged), "ragged T")
     leaf = q.clone().requires_grad_(True)
-    expect_raises(NotImplementedError, lambda: flash_attention(leaf, k, v),
-                  "requires_grad on the card")
+    expect_raises(ValueError,
+                  lambda: flash_attention(leaf, k, v, emit_lse=True),
+                  "lse asked for under grad on the card")
 
     emit({"phase": "kernels", "kernels": ["flash_fwd"],
           "limits": {"float32": FLASH_TOL, "lse": FLASH_LSE_TOL,
@@ -913,7 +915,481 @@ def phase_palette(device, workdir):
     return launches
 
 
-def kernels_line(cases, launches, flash_cases, palette_launches):
+# flash attention backward, kernels vs plain version. float32 operands: the
+# same float32 arithmetic summed in another order (exp2 against exp), limit
+# relative to the plain output's largest magnitude; bfloat16 operands: both
+# compute in float32 and round each output once, so they differ by at most
+# one bf16 unit in the last place.
+FLASH_BWD_TOL = 1e-4
+FLASH_BWD_BF16_REL_TOL = 2.0 ** -8
+# one training step of a small UNet, card vs CPU, true float32 both: loss and
+# every gradient relative to that gradient's largest magnitude, or to a
+# thousandth of the largest gradient of all for the tensors whose gradient is
+# float noise (biases a BatchNorm makes irrelevant)
+GRAD_CHECK_TOL = 1e-3
+# per training step of the CLI-default UNet: its 10 flash-path attention
+# calls run forward once in the step and again in the checkpoint's
+# recomputation, and backward once
+TRAIN_LAUNCHES_PER_STEP = {"flash_fwd": 20, "flash_bwd_dq": 10,
+                           "flash_bwd_dkv": 10}
+TRAIN_IMAGES, VAL_IMAGES, TRAIN_BATCH = 16, 2, 4
+PALETTE_PARAMETERS = 974_508_161
+# float32 weights and Adam's two moments (no EMA): what one slot holds
+SLOT_BYTES = 3 * 4 * PALETTE_PARAMETERS
+
+
+def flash_bwd_bounds(shape, dtype):
+    """{kernel: (bound_ms, bound_by)} of the two backward kernels: operations
+    (6 and 8 x B*H*T*T*D) over the operands' peak rate, against the bytes
+    each must move (q, k, v, dO, lse, delta read once; dq, or dk and dv,
+    written once) over the memory rate."""
+    b, h, t, d = shape
+    size = 2 if dtype == torch.bfloat16 else 4
+    rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+    out = {}
+    for name, ops, outputs in (("flash_bwd_dq", 6, 1),
+                               ("flash_bwd_dkv", 8, 2)):
+        nbytes = (4 + outputs) * b * h * t * d * size + 2 * 4 * b * h * t
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops * b * h * t * t * d / rate * 1e3
+        out[name] = (bytes_ms, "bytes") if bytes_ms >= ops_ms \
+            else (ops_ms, "operations")
+    return out
+
+
+def phase_flash_backward(device):
+    """The flash-attention backward wrapper vs its plain version on the
+    card, each kernel timed alone."""
+    import torch.nn.functional as F
+
+    from pai_tpu_torch import kernels
+    from pai_tpu_torch.kernels import flash_attention as fa
+
+    # (shape, dtype, timed in full); the first two are the training path's
+    cases = [((4, 4, 16384, 64), torch.float32, True),
+             ((4, 4, 4096, 128), torch.float32, True),
+             ((1, 2, 4096, 32), torch.float32, False),
+             ((1, 1, 1024, 256), torch.float32, False),
+             ((2, 4, 4096, 64), torch.bfloat16, True)]
+    results = []
+    for seed, (shape, dtype, full) in enumerate(cases):
+        q, k, v = random_qkv(shape, 200 + seed, device, dtype)
+        do = random_qkv(shape, 300 + seed, device, dtype)[0]
+        o, lse = fa.flash_attention(q, k, v, emit_lse=True)
+        want = fa.flash_attention_backward_plain(q, k, v, o, lse, do)
+        before = dict(kernels.launch_counts)
+        got = fa.flash_attention_backward(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+            check(kernels.launch_counts[name] == before[name] + 1,
+                  f"{name} did not count its launch at {shape}")
+        entry = {"shape": list(shape), "dtype": str(dtype).split(".")[-1]}
+        for tag, g, w in zip(("dq", "dk", "dv"), got, want):
+            check(g.shape == q.shape and g.dtype == dtype and g.is_cuda,
+                  f"flash backward {tag}: {tuple(g.shape)} {g.dtype}")
+            check(bool(torch.isfinite(g).all()), f"{tag} not finite {shape}")
+            scale = float(w.float().abs().max())
+            err = float((g.float() - w.float()).abs().max())
+            limit = (FLASH_BWD_TOL if dtype == torch.float32
+                     else FLASH_BWD_BF16_REL_TOL) * scale
+            check(err <= limit, f"flash backward {tag} differs from plain at "
+                  f"{shape} {dtype}: {err} > {limit}")
+            entry[f"{tag}_max_abs_err"] = err
+            entry[f"{tag}_limit"] = limit
+        again = fa.flash_attention_backward(q, k, v, o, lse, do)
+        check(all(torch.equal(a, b) for a, b in zip(again, got)),
+              f"flash backward is not bit-reproducible at {shape}")
+        call = fa.prepare_backward(q, k, v, o, lse, do)
+        bounds = flash_bwd_bounds(shape, dtype)
+        for name, launch in (("flash_bwd_dq", fa.launch_dq),
+                             ("flash_bwd_dkv", fa.launch_dkv)):
+            entry[name] = {"ms": time_ms(lambda: launch(call), samples=5,
+                                         calls=3),
+                           "bound_ms": bounds[name][0],
+                           "bound_by": bounds[name][1]}
+        entry["backward_ms"] = time_ms(
+            lambda: fa.flash_attention_backward(q, k, v, o, lse, do),
+            samples=5, calls=3)
+        if full:
+            entry["plain_ms"] = time_ms(
+                lambda: fa.flash_attention_backward_plain(q, k, v, o, lse, do),
+                samples=3, calls=1)
+            for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+                entry[name]["kernel_us"] = device_kernel_us(
+                    lambda: fa.flash_attention_backward(q, k, v, o, lse, do),
+                    (name + "_kernel",), calls=3)
+            # the yardstick: the backward of PyTorch's fused attention on the
+            # same tensors (timed only; float32 with TF32 off, as set)
+            leaves = [x.detach().clone().requires_grad_(True)
+                      for x in (q, k, v)]
+            out = F.scaled_dot_product_attention(*leaves,
+                                                 scale=shape[-1] ** -0.5)
+            entry["library_ms"] = time_ms(
+                lambda: torch.autograd.grad(out, leaves, do,
+                                            retain_graph=True),
+                samples=5, calls=3)
+            del leaves, out
+        results.append(entry)
+        del q, k, v, do, o, lse, want, got, again, call
+
+    # strided: q, k, v as views of one packed (N, T, heads, 3, D) tensor
+    rng = np.random.default_rng(210)
+    packed = torch.from_numpy(rng.normal(0.0, 1.0, (2, 4096, 4, 3, 64)).astype(
+        np.float32)).to(device)
+    q, k, v = (packed[:, :, :, i].permute(0, 2, 1, 3) for i in range(3))
+    do = random_qkv((2, 4, 4096, 64), 211, device)[0]
+    o, lse = fa.flash_attention(q, k, v, emit_lse=True)
+    want = fa.flash_attention_backward_plain(q.contiguous(), k.contiguous(),
+                                             v.contiguous(), o, lse, do)
+    got = fa.flash_attention_backward(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    strided_err = max(float((g - w).abs().max()) / float(w.abs().max())
+                      for g, w in zip(got, want))
+    check(strided_err <= FLASH_BWD_TOL,
+          f"flash backward differs from plain on packed views: {strided_err}")
+
+    # the autograd.Function on the card against the plain backward
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    fa.flash_attention(*leaves).backward(do)
+    function_err = max(float((leaf.grad - w).abs().max()) / float(
+        w.abs().max()) for leaf, w in zip(leaves, want))
+    check(function_err <= FLASH_BWD_TOL,
+          f"FlashAttention's gradients on the card: {function_err}")
+    expect_raises(ValueError, lambda: fa.flash_attention_backward(
+        q, k, v, o, lse[:, :64], do), "a short lse")
+
+    emit({"phase": "kernels", "kernels": ["flash_bwd_dq", "flash_bwd_dkv"],
+          "limits": {"float32_relative": FLASH_BWD_TOL,
+                     "bfloat16_relative": FLASH_BWD_BF16_REL_TOL},
+          "packed_views_max_rel_err": strided_err,
+          "function_max_rel_err": function_err, "cases": results})
+    return results
+
+
+def perturbed_unet(generator, **kwargs):
+    """A DiffusionUNet on the CPU whose zero-initialised layers get small
+    random weights (or the output, and most gradients, would be zero)."""
+    from pai_tpu_torch.models.diffusion_unet import (DiffusionUNet,
+                                                     TokenConv1d, ZeroConv)
+
+    model = DiffusionUNet(generator=generator, **kwargs)
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, ZeroConv) or (
+                    isinstance(module, TokenConv1d)
+                    and not bool(module.weight.any())):
+                module.weight.normal_(0.0, 0.5 * module.weight[0].numel()
+                                      ** -0.5, generator=generator)
+    return model
+
+
+def phase_gradcheck(device):
+    """One training step of a small UNet on the card and on the CPU from the
+    same weights and draws: mults (1, 2), inner 64, 2 heads, attention at
+    rates 1 and 2 over 64x64 images, so rate 1 is T = 4,096 of D = 32 (the
+    flash kernels on the card) and rate 2 T = 1,024 (full softmax)."""
+    from pai_tpu_torch import kernels
+    from pai_tpu_torch.diffusion import make_schedule
+    from pai_tpu_torch.train import steps as steps_lib
+
+    kwargs = dict(in_channels=2, out_channels=1, inner_channel=64,
+                  channel_mults=(1, 2), attn_res=(1, 2), num_heads=2)
+    from pai_tpu_torch.models.diffusion_unet import DiffusionUNet
+
+    cpu_model = perturbed_unet(torch.Generator().manual_seed(5), **kwargs)
+    card_model = DiffusionUNet(device="meta", **kwargs)
+    card_model.load_state_dict(cpu_model.state_dict(), assign=True)
+    card_model = card_model.to(device).to(memory_format=torch.channels_last)
+    rng = np.random.default_rng(9)
+    x, y = (rng.uniform(-1, 1, (2, 64, 64, 1)).astype(np.float32)
+            for _ in range(2))
+    rand = {"t": np.array([0, 700], np.int64),
+            "noise": rng.normal(size=(2, 64, 64, 1)).astype(np.float32),
+            "u": rng.uniform(size=(2,)).astype(np.float32)}
+    results = {}
+    for where, model in (("cuda", card_model), ("cpu", cpu_model)):
+        dev = torch.device(where)
+        state = steps_lib.init_palette_state(model, use_ema=False)
+        step = steps_lib.make_palette_train_step(
+            model, make_schedule("linear", 2000, 1e-6, 0.01, device=dev),
+            False, external_rand=True)
+        before = dict(kernels.launch_counts)
+        start = time.perf_counter()
+        _, metrics = step(state, torch.from_numpy(x).to(dev),
+                          torch.from_numpy(y).to(dev),
+                          {k: torch.from_numpy(v).to(dev)
+                           for k, v in rand.items()})
+        loss = float(metrics["loss"])
+        seconds = time.perf_counter() - start
+        launched = {k: kernels.launch_counts[k] - before[k] for k in before}
+        results[where] = (loss, {n: p.grad.detach().cpu()
+                                 for n, p in model.named_parameters()},
+                          launched, seconds)
+    card_loss, card_grads, card_launched, card_s = results["cuda"]
+    cpu_loss, cpu_grads, cpu_launched, cpu_s = results["cpu"]
+    check(card_launched["flash_fwd"] == 10 and card_launched["flash_bwd_dq"]
+          == 5 and card_launched["flash_bwd_dkv"] == 5,
+          f"gradient check step launched {card_launched}")
+    check(not any(cpu_launched.values()), "the CPU step launched a kernel")
+    loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    check(loss_err <= GRAD_CHECK_TOL, f"loss card {card_loss} vs CPU "
+          f"{cpu_loss}: {loss_err} > {GRAD_CHECK_TOL}")
+    top = max(float(g.abs().max()) for g in cpu_grads.values())
+    worst, worst_name = 0.0, None
+    for name, want in cpu_grads.items():
+        scale = max(float(want.abs().max()), 1e-3 * top)
+        err = float((card_grads[name] - want).abs().max()) / scale
+        if err > worst:
+            worst, worst_name = err, name
+    check(worst <= GRAD_CHECK_TOL, f"gradient {worst_name}, card vs CPU: "
+          f"{worst} > {GRAD_CHECK_TOL}")
+    emit({"phase": "gradcheck", "loss_cuda": card_loss, "loss_cpu": cpu_loss,
+          "loss_rel_err": loss_err, "grad_max_rel_err": worst,
+          "grad_worst_tensor": worst_name, "tensors": len(cpu_grads),
+          "launches_cuda_step": card_launched, "limit": GRAD_CHECK_TOL,
+          "step_seconds": {"cuda": card_s, "cpu": cpu_s}})
+
+
+def write_pairs(directory, n_images, seed):
+    from pai_tpu_torch.utils.images import write_png
+
+    os.makedirs(directory)
+    rng = np.random.default_rng(seed)
+    entries = []
+    for i in range(n_images):
+        x = blob_image(rng)
+        write_png(x, os.path.join(directory, f"in_{i}.png"))
+        write_png(255 - x, os.path.join(directory, f"gt_{i}.png"))
+        entries.append(f"- input: in_{i}.png\n  ground_truth: gt_{i}.png\n")
+    manifest = os.path.join(directory, "data.yaml")
+    with open(manifest, "w") as f:
+        f.write("".join(entries))
+    return manifest
+
+
+def step_event_ms(fn, repeats):
+    """Mean CUDA-event time of ``repeats`` calls of a whole training step."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(repeats):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / repeats
+
+
+def phase_train(device, workdir):
+    """``python -m pai_tpu_torch.main smoke -m palette --batch-size 4
+    --epochs 1 --val-epochs 1 --precision 32 --device cuda`` in this process
+    (the launch counts live here) at the CLI-default width: 4 steps, one
+    validation with the 100-step chain, best and last slots. Then the same
+    seed again for one step, a profiled step and a step at batch 8."""
+    import gc
+    import shutil
+
+    from pai_tpu_torch import kernels
+    from pai_tpu_torch import main as train_main
+    from pai_tpu_torch.api import Palette
+    from pai_tpu_torch.data import BatchLoader, ImageDataset
+    from pai_tpu_torch.train import loop
+    from pai_tpu_torch.train import steps as steps_lib
+    from pai_tpu_torch.utils import checkpoint as ckpt_lib
+
+    free = shutil.disk_usage(workdir).free
+    need = 3 * SLOT_BYTES + 2 * 10 ** 9
+    check(free >= need, f"{free / 1e9:.1f} GB free under {workdir}: the train "
+          f"phase writes a best and a last slot of ~{SLOT_BYTES / 1e9:.1f} GB "
+          f"and rewrites last beside itself, {need / 1e9:.1f} GB in all")
+    train = write_pairs(os.path.join(workdir, "train"), TRAIN_IMAGES, 1)
+    val = write_pairs(os.path.join(workdir, "val"), VAL_IMAGES, 2)
+    logs, ckpts = (os.path.join(workdir, d) for d in ("tlogs", "tckpt"))
+
+    steps, saves, validations, captured = [], [], [], {}
+    real_make = steps_lib.make_palette_train_step
+    real_write = ckpt_lib._write_slot
+    real_validate = loop.Trainer.validate
+
+    def instrumented(*args, **kwargs):
+        step = real_make(*args, **kwargs)
+
+        def timed(state, x, y, rand=None):
+            torch.cuda.synchronize()
+            before = dict(kernels.launch_counts)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            host = time.perf_counter()
+            start.record()
+            state, metrics = step(state, x, y, rand)
+            enqueue_ms = (time.perf_counter() - host) * 1e3
+            end.record()
+            torch.cuda.synchronize()
+            captured["state"] = state
+            steps.append({"ms": start.elapsed_time(end),
+                          "enqueue_ms": enqueue_ms,
+                          "loss": float(metrics["loss"]),
+                          "launches": {k: kernels.launch_counts[k] - before[k]
+                                       for k in before}})
+            return state, metrics
+        return timed
+
+    def timed_write(slot_dir, flat, meta):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = real_write(slot_dir, flat, meta)
+        saves.append({"slot": os.path.basename(slot_dir),
+                      "seconds": time.perf_counter() - start,
+                      "bytes": os.path.getsize(os.path.join(slot_dir,
+                                                            "state.pt"))})
+        return out
+
+    def timed_validate(self, state, epoch):
+        torch.cuda.synchronize()
+        before = dict(kernels.launch_counts)
+        start = time.perf_counter()
+        out = real_validate(self, state, epoch)
+        torch.cuda.synchronize()
+        validations.append({"seconds": time.perf_counter() - start,
+                            "launches": {k: kernels.launch_counts[k]
+                                         - before[k] for k in before}})
+        return out
+
+    steps_lib.make_palette_train_step = instrumented
+    ckpt_lib._write_slot = timed_write
+    loop.Trainer.validate = timed_validate
+    try:
+        # ---- the main path, counted ----------------------------------
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        start = time.perf_counter()
+        summary = train_main.main([
+            "smoke", "-d", train, "-vd", val, "-m", "palette",
+            "--batch-size", str(TRAIN_BATCH), "--epochs", "1",
+            "--val-epochs", "1", "--precision", "32", "--device", "cuda",
+            "--log-dir", logs, "--ckpt-dir", ckpts])
+        torch.cuda.synchronize()
+        fit_seconds = time.perf_counter() - start
+        launches = dict(kernels.launch_counts)
+        peak_fit = torch.cuda.max_memory_allocated()
+        # ---- end of the counted window -------------------------------
+    finally:
+        steps_lib.make_palette_train_step = real_make
+        ckpt_lib._write_slot = real_write
+        loop.Trainer.validate = real_validate
+
+    n_steps = TRAIN_IMAGES // TRAIN_BATCH
+    check(summary["steps"] == n_steps and len(steps) == n_steps,
+          f"trained {summary['steps']} steps, expected {n_steps}")
+    for i, entry in enumerate(steps):
+        for name, count in TRAIN_LAUNCHES_PER_STEP.items():
+            check(entry["launches"][name] == count,
+                  f"step {i + 1} launched {name} {entry['launches'][name]} "
+                  f"times, expected {count}")
+        check(np.isfinite(entry["loss"]), f"step {i + 1} loss not finite")
+    check(len(validations) == 1 and validations[0]["launches"]["ssim_scalar"]
+          >= 1, f"validation did not launch ssim_scalar: {validations}")
+    check(all(np.isfinite(summary[k]) for k in ("val_ssim", "val_psnr",
+                                                  "val_rmse")),
+          f"validation metrics: {summary}")
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "ssim_scalar"):
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the training path")
+    slots = sorted(os.listdir(os.path.join(ckpts, "smoke")))
+    check(slots == ["best", "last"], f"checkpoint slots {slots}")
+    check([s["slot"] for s in saves] == ["best", "last", "last"],
+          f"saves {saves}")
+    outputs = sorted(os.listdir(os.path.join(logs, "smoke", "version_0",
+                                             "1")))
+    check(outputs == [f"output_{i}.png" for i in range(VAL_IMAGES)],
+          f"validation samples {outputs}")
+
+    # the best slot through the API: the trainer's weights
+    state = captured.pop("state")
+    start = time.perf_counter()
+    api_model = Palette.load_from_checkpoint(
+        os.path.join(ckpts, "smoke", "best"), device="cuda")
+    torch.cuda.synchronize()
+    load_seconds = time.perf_counter() - start
+    own = dict(state.model.named_parameters())
+    loaded = api_model._module.state_dict()
+    check(all(torch.equal(loaded[k], p.detach()) for k, p in own.items()),
+          "the best slot's weights differ from the trainer's")
+    del state, own, loaded, api_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same seed again: a new trainer's first step on the same batch
+    trainer = loop.Trainer(dict(
+        name="again", data=train, val_data=None, model="palette",
+        batch_size=TRAIN_BATCH, precision="32", device="cuda",
+        log_dir=logs, ckpt_dir=ckpts))
+    loader = BatchLoader(ImageDataset(train, SIZE), TRAIN_BATCH,
+                         shuffle=True, pad_mode="cycle", seed=0,
+                         device="cuda")
+    batch = next(iter(loader))
+    loader.close()
+    state = steps_lib.init_palette_state(trainer.model, use_ema=False)
+    step = steps_lib.make_palette_train_step(
+        trainer.model, trainer.sched_train, False,
+        warmup_steps_per_epoch=n_steps, generator=trainer.generator, seed=0)
+    state, metrics = step(state, batch.x, batch.y)
+    again_loss = float(metrics["loss"])
+    check(again_loss == steps[0]["loss"], f"the same seed gave first-step "
+          f"loss {again_loss} after {steps[0]['loss']}")
+
+    # where a step's device time goes (warm: Adam's state exists); the
+    # profiler's device time per kernel over the CUDA-event time of a step
+    events = device_events_us(lambda: step(state, batch.x, batch.y), calls=1)
+    kernel_ms = {name: sum(us for key, us in events.items()
+                           if name + "_kernel" in key) / 1e3
+                 for name in TRAIN_LAUNCHES_PER_STEP}
+    step_ms = step_event_ms(lambda: step(state, batch.x, batch.y), 2)
+    top_events = sorted(events.items(), key=lambda kv: -kv[1])[:12]
+
+    # one step at the CLI's default batch of 8 (after one to warm up)
+    x8, y8 = (torch.cat([t, t]) for t in (batch.x, batch.y))
+    step(state, x8, y8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms_8 = step_event_ms(lambda: step(state, x8, y8), 1)
+    peak_8 = torch.cuda.max_memory_allocated()
+    del state, step, trainer, batch, x8, y8
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    train_ms = [e["ms"] for e in steps]
+    emit({"phase": "train", "images": TRAIN_IMAGES,
+          "batch_size": TRAIN_BATCH, "steps": n_steps,
+          "channel_mults": FULL_MULTS,
+          "attention_res": PALETTE_ATTENTION_RES,
+          "parameters": PALETTE_PARAMETERS, "fit_seconds": fit_seconds,
+          "step_ms": train_ms, "step_ms_median_after_first":
+              statistics.median(train_ms[1:]),
+          "step_enqueue_ms": [e["enqueue_ms"] for e in steps],
+          "images_per_second_training": TRAIN_BATCH * len(train_ms[1:])
+              / (sum(train_ms[1:]) / 1e3),
+          "launches_per_step": [e["launches"] for e in steps],
+          "validation": validations, "checkpoint_saves": saves,
+          "best_slot_load_seconds": load_seconds,
+          "max_memory_allocated_bytes_fit": peak_fit,
+          "losses": [e["loss"] for e in steps],
+          "same_seed_first_step_loss": again_loss,
+          "profiled_step_ms": step_ms,
+          "kernel_device_ms_per_step": kernel_ms,
+          "kernel_share_of_step": {k: v / step_ms
+                                   for k, v in kernel_ms.items()},
+          "step_top_device_events_us": [[name[:80], us]
+                                        for name, us in top_events],
+          "step_ms_batch_8": step_ms_8,
+          "max_memory_allocated_bytes_batch_8": peak_8,
+          "launches": launches, "summary": summary})
+    return launches
+
+
+def kernels_line(cases, launches, flash_cases, palette_launches, bwd_cases,
+                 train_launches):
     described = {
         "ssim_map": ("pai_tpu_torch/kernels/csrc/ssim.cu",
                      "pai_tpu/kernels/ssim_pallas.py:137"),
@@ -953,6 +1429,35 @@ def kernels_line(cases, launches, flash_cases, palette_launches):
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
         "kernel_us": main["kernel_us"], "tflops": main["tflops"],
         "other_shapes": flash_cases[1:]})
+    out[-1]["launches_training_path"] = train_launches["flash_fwd"]
+    main = bwd_cases[0]  # (4,4,16384,64): the longer of the training path's
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "pai_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "pai_tpu/kernels/flash_attention.py:"
+                        + ("290" if name == "flash_bwd_dq" else "316"),
+            "launches": train_launches[name],
+            "max_abs_err": max(e[f"{g}_max_abs_err"] for e in bwd_cases
+                               if e["dtype"] == "float32"
+                               for g in ("dq", "dk", "dv")),
+            "max_abs_err_bfloat16": max(
+                e[f"{g}_max_abs_err"] for e in bwd_cases
+                if e["dtype"] == "bfloat16" for g in ("dq", "dk", "dv")),
+            "shape": main["shape"], "dtype": main["dtype"],
+            "ms": main[name]["ms"],
+            # the plain version and the library call compute dq, dk and dv
+            # together: their times are those of the whole backward
+            "plain_ms": main["plain_ms"], "bound_ms": main[name]["bound_ms"],
+            "bound_by": main[name]["bound_by"],
+            "library_ms": main["library_ms"],
+            "kernel_us": main[name]["kernel_us"],
+            "backward_ms": main["backward_ms"],
+            "other_shapes": [
+                {"shape": e["shape"], "dtype": e["dtype"], **e[name],
+                 "plain_ms": e.get("plain_ms"),
+                 "library_ms": e.get("library_ms")}
+                for e in bwd_cases[1:]]})
     return {"kernels": out}
 
 
@@ -968,18 +1473,33 @@ def main():
     device = torch.device("cuda", 0)
     smi = nvidia_smi_line()
     flags = apply_precision_policy("32")
+    seconds = {}
+    start = time.perf_counter()
     kernels.load_library("ssim")  # builds every source, in parallel
+    tmp = tempfile.gettempdir()
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "precision": "32", **flags,
-          "kernel_build_seconds": kernels.build_seconds})
+          "kernel_build_seconds": kernels.build_seconds,
+          "tmpdir": tmp, "tmpdir_free_bytes": shutil.disk_usage(tmp).free})
+    seconds["device"] = time.perf_counter() - start
 
-    cases = phase_kernels(device)
-    flash_cases = phase_flash(device)
+    def timed(name, fn, *args):
+        start = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - start
+        return out
+
+    cases = timed("kernels", phase_kernels, device)
+    flash_cases = timed("flash", phase_flash, device)
+    bwd_cases = timed("flash_backward", phase_flash_backward, device)
     with tempfile.TemporaryDirectory(prefix="pai_smoke_") as workdir:
-        launches = phase_report(device, workdir)
-        palette_launches = phase_palette(device, workdir)
+        launches = timed("report", phase_report, device, workdir)
+        palette_launches = timed("palette", phase_palette, device, workdir)
+    timed("gradcheck", phase_gradcheck, device)
+    with tempfile.TemporaryDirectory(prefix="pai_smoke_train_") as workdir:
+        train_launches = timed("train", phase_train, device, workdir)
     for name in ("ssim_map", "ssim_scalar"):
         check(launches[name] > 0,
               f"kernel {name} was not launched on the Pix2Pix path")
@@ -987,7 +1507,9 @@ def main():
         check(palette_launches[name] > 0,
               f"kernel {name} was not launched on the Palette path")
 
-    emit(kernels_line(cases, launches, flash_cases, palette_launches))
+    emit({"phase": "seconds", **seconds})
+    emit(kernels_line(cases, launches, flash_cases, palette_launches,
+                      bwd_cases, train_launches))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

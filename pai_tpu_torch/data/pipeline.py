@@ -13,8 +13,9 @@ memory (one byte per pixel on the bus, not four) and converted and normalised
 shape: cycled samples for training (``pad_mode="cycle"``), zero padding with a
 validity count for evaluation (``"zero"``), so per-image metrics and outputs
 are exact. The order of an epoch is seeded per epoch, the same permutation the
-JAX loader draws. The threaded C++ decoder of the JAX package arrives with the
-training slice.
+JAX loader draws (``epoch_batches``; the trainer sets ``epoch`` before each
+pass, so a resumed run sees the same orders). The JAX package's threaded C++
+decoder is ROADMAP.md Queue A item 6.
 """
 
 from __future__ import annotations

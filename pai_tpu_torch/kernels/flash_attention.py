@@ -1,46 +1,51 @@
-"""Flash-attention forward: the CUDA kernel's wrapper, and its plain PyTorch
-version.
+"""Flash attention, forward and backward: the CUDA kernels' wrappers, their
+plain PyTorch versions, and the ``autograd.Function`` that joins them.
 
 Non-causal, unmasked multi-head attention over ``(B, H, T, D)`` by online
 softmax, QKVAttentionLegacy scaling (q and k each times ``D**-0.25``), float32
 logits, softmax and accumulator whatever the operands' type; optionally the
-per-row log-sum-exp of the logits, ``(B*H, T)`` float32, which a backward pass
+per-row log-sum-exp of the logits, ``(B*H, T)`` float32, which the backward
 needs.
 
 * ``flash_attention(q, k, v, emit_lse=False)`` — on CUDA tensors launches
   kernel ``flash_fwd`` (``csrc/flash_attention.cu::flash_fwd_kernel``), which
   replaces the TPU kernel ``pai_tpu/kernels/flash_attention.py::_fwd_kernel``
-  (both of its instantiations); on CPU tensors takes the plain version.
-* ``flash_attention_plain(q, k, v, emit_lse=False)`` — the same function as
-  blockwise PyTorch (``pai_tpu/ops/attention.py::_blockwise_attention``): the
-  oracle the kernel is held against. A full 16,384 x 16,384 logits tensor
-  would be 1 GB per head, hence blockwise.
+  (both of its instantiations); on CPU tensors takes the plain version. When
+  a gradient is wanted it goes through ``FlashAttention``, as the JAX function
+  goes through its ``custom_vjp``.
+* ``flash_attention_backward(q, k, v, o, lse, do)`` — ``(dq, dk, dv)``: on
+  CUDA tensors launches kernels ``flash_bwd_dq`` and ``flash_bwd_dkv``
+  (``csrc/flash_attention_bwd.cu``), which replace ``_bwd_dq_kernel`` and
+  ``_bwd_dkv_kernel``; ``delta = rowsum(do * o)`` is one PyTorch op before
+  them, as the JAX package computes it in XLA. On CPU tensors the plain
+  version.
+* ``flash_attention_plain`` / ``flash_attention_backward_plain`` — the same
+  functions as blockwise PyTorch (``pai_tpu/ops/attention.py::
+  _blockwise_attention`` and ``_flash_backward``'s formulas): the oracles the
+  kernels are held against. A full 16,384 x 16,384 logits tensor would be
+  1 GB per head, hence blockwise.
 
 Bound on an H100 (67 TFLOP/s float32 on the CUDA cores, 3.35 TB/s HBM3):
-operations — ``4*B*H*T*T*D`` of them against ``4*B*H*T*D`` elements moved, T
-operations per element. The kernel's design (one block per 128 query rows
-looping over 64-row K/V tiles, register-tiled float32 FMAs for both products,
-state in registers, K/V prefetched by ``cp.async``) is described at the top of
-the ``.cu`` source; measured times are in PERF.md.
+operations — ``4*B*H*T*T*D`` forward, ``6*...`` for dq and ``8*...`` for dk
+and dv, against some ``4-8*B*H*T*D`` elements moved. The kernels' designs are
+described at the top of their ``.cu`` sources; measured times are in PERF.md.
 
-The wrapper takes strided views (last dimension contiguous, the other strides
+The wrappers take strided views (last dimension contiguous, the other strides
 multiples of 4 elements): the q, k, v slices of one packed
-``(N, T, heads, 3, D)`` tensor are read in place. Its output is token-major in
-memory — a ``(B, H, T, D)`` view of a contiguous ``(B, T, H, D)`` buffer — so
-``out.permute(0, 2, 1, 3).reshape(B, T, H * D)`` is a view too and the
-projection that follows attention needs no transpose.
+``(N, T, heads, 3, D)`` tensor are read in place. Their outputs are
+token-major in memory — a ``(B, H, T, D)`` view of a contiguous
+``(B, T, H, D)`` buffer — so ``out.permute(0, 2, 1, 3).reshape(B, T, H * D)``
+is a view too and the projection that follows attention needs no transpose.
 
 ``D`` must be 32, 64, 128 or 256 and ``T`` a multiple of 128, on any device;
-anything else raises ``ValueError``. No shape sends a CUDA tensor to the plain
-version. There is no backward kernel yet (ROADMAP.md Queue B items 4-5): a
-tensor that requires grad, under grad mode, raises ``NotImplementedError`` on
-the card instead of differentiating through a stand-in.
+anything else raises ``ValueError``. No shape sends a CUDA tensor to a plain
+version.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple, Union
+from typing import NamedTuple, Tuple, Union
 
 import torch
 
@@ -58,6 +63,15 @@ def flash_attention_flops(shape) -> int:
     ``2*T*T*D`` each per head."""
     b, h, t, d = shape
     return 4 * b * h * t * t * d
+
+
+def flash_attention_backward_flops(shape) -> Tuple[int, int]:
+    """Operations of the two backward kernels on ``(B, H, T, D)`` operands:
+    dq recomputes the logits and ``dO V^T`` and forms ``dS K`` (three products
+    of ``2*T*T*D``), dkv does the same two plus ``P^T dO`` and ``dS^T Q``
+    (four)."""
+    b, h, t, d = shape
+    return 6 * b * h * t * t * d, 8 * b * h * t * t * d
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -135,6 +149,69 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _check_backward(q, k, v, o, lse, do) -> None:
+    _check(q, k, v)
+    for name, x in (("o", o), ("do", do)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(
+                f"flash_attention_backward: {name} must match q "
+                f"{tuple(q.shape)} {q.dtype}, got {tuple(x.shape)} {x.dtype}")
+    b, h, t, _ = q.shape
+    if lse.shape != (b * h, t) or lse.dtype != torch.float32 \
+            or lse.device != q.device:
+        raise ValueError(
+            "flash_attention_backward: lse must be float32 (B*H, T) = "
+            f"{(b * h, t)}, got {tuple(lse.shape)} {lse.dtype}")
+
+
+def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """``rowsum(do * o)``, ``(B*H, T)`` float32."""
+    b, h, t, _ = o.shape
+    return (do.float() * o.float()).sum(dim=-1).reshape(b * h, t)
+
+
+def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, o: torch.Tensor,
+                                   lse: torch.Tensor, do: torch.Tensor
+                                   ) -> Tuple[torch.Tensor, ...]:
+    """``(dq, dk, dv)`` of ``flash_attention`` by the explicit blockwise
+    formulas of ``pai_tpu/kernels/flash_attention.py::_flash_backward``:
+    ``P = exp(s^2 q k^T - lse)``, ``dS = P (do v^T - delta)``,
+    ``dq = s^2 dS k``, ``dk = s^2 dS^T q``, ``dv = P^T do``, with ``s^2 =
+    D**-0.5``. ``lse`` is taken as given (a caller may pass one that spans
+    more keys than ``k`` holds). Computes in float32; returns the operands'
+    dtype."""
+    _check_backward(q, k, v, o, lse, do)
+    b, h, t, d = q.shape
+    s2 = d ** -0.5
+    block = _plain_block(t)
+    with torch.autocast(device_type=q.device.type, enabled=False):
+        qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+        lse4 = lse.reshape(b, h, t, 1)
+        delta = _delta(o, do).reshape(b, h, t, 1)
+        dq = torch.zeros((b, h, t, d), dtype=torch.float32, device=q.device)
+        dk = torch.zeros_like(dq)
+        dv = torch.zeros_like(dq)
+        for q0 in range(0, t, block):
+            rows = slice(q0, q0 + block)
+            for k0 in range(0, t, block):
+                cols = slice(k0, k0 + block)
+                logits = torch.matmul(qf[:, :, rows],
+                                      kf[:, :, cols].transpose(-1, -2)) * s2
+                p = torch.exp(logits - lse4[:, :, rows])
+                dp = torch.matmul(dof[:, :, rows],
+                                  vf[:, :, cols].transpose(-1, -2))
+                ds = p * (dp - delta[:, :, rows])
+                dq[:, :, rows] += torch.matmul(ds, kf[:, :, cols])
+                dk[:, :, cols] += torch.matmul(ds.transpose(-1, -2),
+                                               qf[:, :, rows])
+                dv[:, :, cols] += torch.matmul(p.transpose(-1, -2),
+                                               dof[:, :, rows])
+        dq *= s2
+        dk *= s2
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
 # --------------------------------------------------------------------------
 # the kernel's launcher
 # --------------------------------------------------------------------------
@@ -147,6 +224,28 @@ def _library() -> ctypes.CDLL:
         lib.pai_flash_fwd.restype = i32
         lib._pai_declared = True
     return lib
+
+
+def _backward_library() -> ctypes.CDLL:
+    lib = kernels.load_library("flash_attention_bwd")
+    if not getattr(lib, "_pai_declared", False):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        strides = ctypes.POINTER(ctypes.c_longlong)
+        lib.pai_flash_bwd_dq.argtypes = (
+            [ptr] * 7 + [i32] * 5 + [strides, ptr])
+        lib.pai_flash_bwd_dkv.argtypes = (
+            [ptr] * 8 + [i32] * 5 + [strides, ptr])
+        lib.pai_flash_bwd_dq.restype = i32
+        lib.pai_flash_bwd_dkv.restype = i32
+        lib._pai_declared = True
+    return lib
+
+
+def _token_major(b: int, h: int, t: int, d: int, like: torch.Tensor
+                 ) -> torch.Tensor:
+    """A ``(B, H, T, D)`` view of a new contiguous ``(B, T, H, D)`` buffer."""
+    return torch.empty((b, t, h, d), dtype=like.dtype, device=like.device
+                       ).permute(0, 2, 1, 3)
 
 
 def _check_strides(name: str, x: torch.Tensor) -> None:
@@ -167,9 +266,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_strides(name, x)
     lib = _library()
-    # token-major storage, seen as (B, H, T, D)
-    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device
-                      ).permute(0, 2, 1, 3)
+    out = _token_major(b, h, t, d, q)
     lse = torch.empty((b * h, t), dtype=torch.float32, device=q.device) \
         if emit_lse else None
     with torch.cuda.device(q.device):
@@ -185,19 +282,123 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, lse) if emit_lse else out
 
 
+class BackwardLaunch(NamedTuple):
+    """Everything the two backward kernels of one call are launched with."""
+    lib: ctypes.CDLL
+    inputs: tuple      # q, k, v, do, lse, delta pointers
+    common: tuple      # B, H, T, D, dtype code, strides
+    dq: torch.Tensor
+    dk: torch.Tensor
+    dv: torch.Tensor
+    keep: tuple        # tensors the pointers point into
+    flops: Tuple[int, int]
+
+
+def prepare_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor
+                     ) -> BackwardLaunch:
+    """Check the CUDA operands, compute ``delta`` and allocate the
+    token-major outputs of one backward call."""
+    b, h, t, d = q.shape
+    if b * h > 65535:
+        raise ValueError(
+            f"flash_attention_backward: B*H = {b * h} exceeds the grid's "
+            "65,535")
+    for name, x in (("q", q), ("k", k), ("v", v), ("do", do)):
+        _check_strides(name, x)
+    lse = lse.contiguous()
+    delta = _delta(o, do)
+    dq, dk, dv = (_token_major(b, h, t, d, q) for _ in range(3))
+    strides = (ctypes.c_longlong * 21)(*(
+        s for x in (q, k, v, do, dq, dk, dv) for s in x.stride()[:3]))
+    return BackwardLaunch(
+        lib=_backward_library(),
+        inputs=(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr()),
+        common=(b, h, t, d, _DTYPE_CODES[q.dtype], strides),
+        dq=dq, dk=dk, dv=dv, keep=(q, k, v, do, lse, delta),
+        flops=flash_attention_backward_flops(q.shape))
+
+
+def launch_dq(call: BackwardLaunch) -> None:
+    """Kernel ``flash_bwd_dq`` into ``call.dq``."""
+    with torch.cuda.device(call.dq.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = call.lib.pai_flash_bwd_dq(*call.inputs, call.dq.data_ptr(),
+                                         *call.common, stream)
+    kernels.check_launch(code, "flash_bwd_dq")
+    kernels.launch_counts["flash_bwd_dq"] += 1
+    kernels.launched_flops += call.flops[0]
+
+
+def launch_dkv(call: BackwardLaunch) -> None:
+    """Kernel ``flash_bwd_dkv`` into ``call.dk`` and ``call.dv``."""
+    with torch.cuda.device(call.dq.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = call.lib.pai_flash_bwd_dkv(*call.inputs, call.dk.data_ptr(),
+                                          call.dv.data_ptr(), *call.common,
+                                          stream)
+    kernels.check_launch(code, "flash_bwd_dkv")
+    kernels.launch_counts["flash_bwd_dkv"] += 1
+    kernels.launched_flops += call.flops[1]
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, do: torch.Tensor
+                             ) -> Tuple[torch.Tensor, ...]:
+    """``(dq, dk, dv)`` given the forward's output ``o``, its ``lse`` and the
+    output gradient ``do``: kernels ``flash_bwd_dq`` and ``flash_bwd_dkv`` on
+    CUDA tensors (token-major outputs), the plain version on CPU tensors."""
+    _check_backward(q, k, v, o, lse, do)
+    if not q.is_cuda:  # CPU tensors: the plain version
+        return flash_attention_backward_plain(q, k, v, o, lse, do)
+    call = prepare_backward(q, k, v, o, lse, do)
+    launch_dq(call)
+    launch_dkv(call)
+    return call.dq, call.dk, call.dv
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             emit_lse: bool) -> Result:
+    if not q.is_cuda:  # CPU tensors: the plain version
+        return flash_attention_plain(q, k, v, emit_lse)
+    return _launch(q, k, v, emit_lse)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with its backward: the forward keeps ``lse`` and
+    its output, the backward hands them to ``flash_attention_backward`` (the
+    JAX function's ``custom_vjp`` rules)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out, lse = _forward(q, k, v, emit_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v, out, lse = ctx.saved_tensors
+        if grad.stride(3) != 1 or any(s % 4 for s in grad.stride()[:3]) \
+                or grad.data_ptr() % 16:  # a layout the kernels take
+            grad = grad.contiguous()
+        return flash_attention_backward(q, k, v, out, lse, grad)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     emit_lse: bool = False) -> Result:
     """``(B, H, T, D)`` attention output (and ``lse`` ``(B*H, T)`` with
     ``emit_lse``): the ``flash_fwd`` kernel on CUDA tensors, the plain
-    version on CPU tensors."""
+    version on CPU tensors. Differentiable through ``FlashAttention`` when a
+    gradient is wanted (``lse`` is not: asking for it then raises)."""
     _check(q, k, v)
-    if not q.is_cuda:  # CPU tensors: the plain version
-        return flash_attention_plain(q, k, v, emit_lse)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        raise NotImplementedError(
-            "flash_attention has no backward kernel on the card yet: "
-            "ROADMAP.md Queue B items 4-5 (flash dq and dkv, the Palette "
-            "training slice). Call it under torch.no_grad() / "
-            "inference_mode() or on tensors that do not require grad.")
-    return _launch(q, k, v, emit_lse)
+        if emit_lse:
+            raise ValueError(
+                "flash_attention: lse is not differentiable; call it with "
+                "emit_lse=True under torch.no_grad() or on tensors that do "
+                "not require grad")
+        return FlashAttention.apply(q, k, v)
+    return _forward(q, k, v, emit_lse)

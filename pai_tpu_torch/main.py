@@ -1,0 +1,110 @@
+"""Train CLI of the port — the flag surface of the root ``main.py`` (names,
+defaults and choices verbatim) plus ``--device``.
+
+Usage:
+    python -m pai_tpu_torch.main <name> -d train.yaml -vd val.yaml -m palette
+
+Ported: ``-m palette`` (DDPM training, validation with the 100-step chain,
+best/last checkpoints on validation SSIM). Another model raises
+``NotImplementedError`` (ROADMAP.md Queue A item 3), as do ``--tp``/``--sp``
+other than 1 and ``--fsdp`` (item 7). Runs on the card unless
+``--device cpu`` is given.
+"""
+
+import argparse
+import pathlib
+from argparse import ArgumentParser
+
+MODEL_CHOICES = [
+    "pix2pix",
+    "attention_unet",
+    "res18_unet",
+    "res50_unet",
+    "resv2_unet",
+    "resnext_unet",
+    "trans_unet",
+    "palette",
+]
+
+
+def build_parser() -> ArgumentParser:
+    parser = ArgumentParser(prog="python -m pai_tpu_torch.main")
+    parser.add_argument("name")
+    parser.add_argument("-d", "--data", type=pathlib.Path,
+                        help="YAML file containing filenames of images that "
+                             "make up the training data.")
+    parser.add_argument("-vd", "--val-data", type=pathlib.Path,
+                        help="YAML file containing filenames of images that "
+                             "make up the validation data.")
+    parser.add_argument("-e", "--epochs", default=200, type=int)
+    parser.add_argument("-s", "--steps", default=-1, type=int)
+    parser.add_argument("--batch-size", default=8, type=int)
+    parser.add_argument("--val-epochs", default=10, type=int,
+                        help="Validation run every n epochs.")
+    parser.add_argument("--precision", default="32",
+                        help="Floating-point precision")
+    parser.add_argument("--ema", default=False,
+                        action=argparse.BooleanOptionalAction,
+                        help="Whether to use EMA weight updating.")
+    parser.add_argument("--channel-mults", default="1,2,4,8,8,8,8,8",
+                        help="Defines the U-net architecture's depth and "
+                             "width. Should be comma-separated powers of 2.")
+    parser.add_argument("--attention-res", default="8,4,2",
+                        help="At what downsample multiples attention should "
+                             "be used, if the model supports it. Should be "
+                             "comma-separated powers of 2.")
+    parser.add_argument("--dropout", default=0.0, type=float)
+    parser.add_argument("--loss-type", default="gan",
+                        choices=["gan", "ssim", "psnr", "ssim+psnr", "mse"])
+    parser.add_argument("--schedule-type", default="linear",
+                        choices=["linear", "cosine"])
+    parser.add_argument("--learn-variance", default=False,
+                        action=argparse.BooleanOptionalAction)
+    parser.add_argument("-m", "--model", default="pix2pix",
+                        choices=MODEL_CHOICES)
+    # extensions of the JAX package's CLI
+    parser.add_argument("--seed", default=0, type=int)
+    parser.add_argument("--resume", default=False,
+                        action=argparse.BooleanOptionalAction,
+                        help="Resume from the last checkpoint of this run.")
+    parser.add_argument("--log-dir", default="logs")
+    parser.add_argument("--ckpt-dir", default="checkpoints")
+    parser.add_argument("--profile-dir", default=None,
+                        help="Write a torch.profiler trace of the first "
+                             "training steps to this directory.")
+    parser.add_argument("--tp", default=1, type=int,
+                        help="Tensor-parallel degree (not ported: must be 1).")
+    parser.add_argument("--scan-steps", default=1, type=int,
+                        help="Accepted for the JAX package's surface: must "
+                             "divide the 10-step log cadence; the steps run "
+                             "one by one.")
+    parser.add_argument("--sp", default=1, type=int,
+                        help="Sequence-parallel degree (not ported: must be "
+                             "1).")
+    parser.add_argument("--fsdp", default=False,
+                        action=argparse.BooleanOptionalAction,
+                        help="Shard parameters and optimizer state (not "
+                             "ported).")
+    parser.add_argument("--warmup-unit", default="epoch",
+                        choices=("epoch", "step"),
+                        help="Palette LinearLR warmup unit: 'epoch' matches "
+                             "the reference (Lightning steps the scheduler "
+                             "per epoch); 'step' warms up per optimizer "
+                             "step.")
+    # the port's own
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to run on (default: cuda)")
+    return parser
+
+
+def main(argv=None):
+    from pai_tpu_torch.train.loop import fit
+
+    hparams = build_parser().parse_args(argv)
+    summary = fit(vars(hparams))
+    print(f"[pai_tpu_torch] done: {summary}")
+    return summary
+
+
+if __name__ == "__main__":
+    main()

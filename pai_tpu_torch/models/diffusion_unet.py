@@ -27,10 +27,16 @@ reference's torch names (``input_blocks.N.0.in_layers.0.weight``,
 ``out.0`` / ``out.2``, ``cond_embed.0`` / ``cond_embed.2``), so a reference
 ``state_dict`` (minus its ``unet.`` prefix) loads as it is.
 
-This is the sampling (eval) side. The reference's always-on gradient
-checkpointing of the attention blocks, and the double running-statistics
-update it causes in training (hence the norm's momentum 0.19 = 1 - 0.9**2),
-belong to the training slice; eval mode reads the running statistics only.
+Training: ``AttentionBlock`` recomputes its attention in the backward pass
+(``torch.utils.checkpoint``, non-reentrant) and wraps nothing else, as the JAX
+module wraps only ``multihead_attention`` in ``jax.checkpoint``. The norm
+stays outside, so its running statistics move once per step, at momentum
+0.19 = 1 - 0.9**2: the reference's checkpointing re-ran the whole block in
+train mode and moved them twice at 0.1, which one step at 0.19 reproduces.
+On the flash path each attention call then launches the forward kernel twice
+(the step's forward and the recomputation) and each backward kernel once. The
+ResBlocks' elementwise dropout draws from the generator the model was built
+with; eval mode reads the running statistics only.
 """
 
 from __future__ import annotations
@@ -39,8 +45,9 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from pai_tpu_torch.ops import (BatchNorm, Conv, Dense, avg_pool_2x,
+from pai_tpu_torch.ops import (BatchNorm, Conv, Dense, Dropout, avg_pool_2x,
                                gamma_embedding, upsample_nearest_2x)
 from pai_tpu_torch.ops.attention import multihead_attention
 
@@ -83,7 +90,7 @@ class TokenConv1d(nn.Conv1d):
 
 class ResBlock(nn.Module):
     """FiLM-conditioned residual block with optional up/down sampling
-    (``use_scale_shift_norm=True``)."""
+    (``use_scale_shift_norm=True``). Its dropout draws from ``generator``."""
 
     def __init__(self, in_channels: int, out_channels: int, emb_channels: int,
                  dropout: float = 0.0, up: bool = False, down: bool = False,
@@ -101,7 +108,7 @@ class ResBlock(nn.Module):
                   generator=generator, device=device))
         self.out_layers = nn.Sequential(
             BatchNorm(out_channels, device=device), nn.SiLU(),
-            nn.Dropout(dropout),
+            Dropout(dropout, generator=generator),
             ZeroConv(out_channels, out_channels, 3, 1, device=device))
         if in_channels != out_channels:
             self.skip_connection = Conv(in_channels, out_channels, 1,
@@ -136,7 +143,7 @@ class AttentionBlock(nn.Module):
                              f"{num_heads} heads")
         self.num_heads = num_heads
         # torch momentum 0.19 is flax momentum 0.81 = 0.9**2 (see the module
-        # docstring); only a training step reads it
+        # docstring)
         self.norm = BatchNorm(channels, momentum=0.19, device=device)
         self.qkv = TokenConv1d(channels, 3 * channels, generator=generator,
                                device=device)
@@ -150,7 +157,12 @@ class AttentionBlock(nn.Module):
         qkv = self.qkv(self.norm(tokens))
         qkv = qkv.reshape(n, t, self.num_heads, 3, c // self.num_heads)
         q, k, v = (qkv[:, :, :, i].permute(0, 2, 1, 3) for i in range(3))
-        a = multihead_attention(q, k, v)              # (N, heads, T, D)
+        if torch.is_grad_enabled() and qkv.requires_grad:
+            # recomputed in the backward pass (the reference's always-on
+            # checkpointing, the JAX module's jax.checkpoint)
+            a = checkpoint(multihead_attention, q, k, v, use_reentrant=False)
+        else:
+            a = multihead_attention(q, k, v)          # (N, heads, T, D)
         a = a.permute(0, 2, 1, 3).reshape(n, t, c)
         out = tokens + self.proj_out(a).to(tokens.dtype)
         return out.reshape(n, hh, ww, c).permute(0, 3, 1, 2)

@@ -6,6 +6,7 @@ from pai_tpu_torch.ops.layers import (
     Conv,
     ConvTranspose,
     Dense,
+    Dropout,
     Dropout2d,
     avg_pool_2x,
     gamma_embedding,

@@ -12,8 +12,11 @@ NCHW.
 * ``BatchNorm`` — torch defaults (eps 1e-5, momentum 0.1), always computed in
   float32 whatever the compute dtype, and cast back. Takes NCHW, or token
   tensors ``(N, L, C)`` (the reference's ``BatchNorm1d``), normalising every
-  axis but the channels.
-* ``Dropout2d`` — whole-channel dropout; rate 0 is the identity.
+  axis but the channels. The running variance follows the JAX package (the
+  biased batch variance), not torch's unbiased update.
+* ``Dropout`` — elementwise dropout (the diffusion ResBlock's); ``Dropout2d``
+  — whole-channel dropout. Both draw from an explicit ``torch.Generator``;
+  rate 0 is the identity.
 * ``leaky_relu`` — slope 0.2; ``silu`` — ``x * sigmoid(x)``.
 * ``avg_pool_2x`` / ``upsample_nearest_2x`` — ``nn.AvgPool2d(2)`` and nearest
   ``nn.Upsample(scale_factor=2)`` on NCHW.
@@ -108,10 +111,13 @@ class ConvTranspose(nn.ConvTranspose2d):
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """Running variance follows torch (unbiased update); the JAX package
-    keeps the biased one, a deviation it documents. Eval-mode outputs and
-    train-mode outputs are the same function in both. ``momentum`` is torch's
-    (the weight of the new batch): flax's 0.9 is 0.1 here."""
+    """Train mode normalises with the batch mean and the biased batch
+    variance, as torch and the JAX package both do, and moves the running
+    statistics toward the batch mean and the *biased* batch variance, as the
+    JAX package does (flax's ``BatchNorm``; torch's own module would take the
+    unbiased one, n/(n-1) larger). ``momentum`` is torch's (the weight of the
+    new batch): flax's 0.9 is 0.1 here. Eval mode reads the running
+    statistics only."""
 
     def __init__(self, features: int, momentum: float = 0.1, device=None):
         super().__init__(features, eps=1e-5, momentum=momentum, device=device)
@@ -120,9 +126,45 @@ class BatchNorm(nn.BatchNorm2d):
         tokens = x.dim() == 3
         if tokens:  # (N, L, C) seen as channels_last (N, C, L, 1): no copy
             x = x.transpose(1, 2).unsqueeze(-1)
+        update = self.training and self.track_running_stats
+        if update:
+            old_var = self.running_var.clone()
         with torch.autocast(device_type=x.device.type, enabled=False):
             y = super().forward(x.float()).to(x.dtype)
+        if update:
+            # torch moved running_var toward v*n/(n-1) with weight m; the
+            # same step toward v is (n-1)/n of that plus (1-m)/n of the old.
+            # Through .data: autograd holds the buffer as an input of the
+            # op above (its backward never reads it), and an in-place change
+            # of the tensor itself would fail its version check.
+            n = x.numel() // x.shape[1]
+            m = self.momentum if self.momentum is not None \
+                else 1.0 / float(self.num_batches_tracked)
+            self.running_var.data.mul_((n - 1) / n).add_(old_var,
+                                                         alpha=(1 - m) / n)
         return y.squeeze(-1).transpose(1, 2) if tokens else y
+
+
+class Dropout(nn.Module):
+    """Elementwise dropout: each element kept with probability ``1 - rate``
+    and scaled by ``1 / (1 - rate)``, the mask drawn from the module's
+    ``generator`` (the global one when none was given)."""
+
+    def __init__(self, rate: float,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator = generator
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.rate
+        mask = torch.empty_like(x).bernoulli_(keep, generator=self.generator)
+        return x * (mask / keep)
+
+    def extra_repr(self) -> str:
+        return f"rate={self.rate}"
 
 
 class Dropout2d(nn.Module):

@@ -1,0 +1,290 @@
+"""The training engine of the port, counterpart of ``pai_tpu/train/loop.py``:
+epoch loop, validation cadence, metric logging, best/last checkpoints.
+
+* epochs / max-steps limits, validation every ``val_epochs`` epochs, CSV
+  metric rows every 10 steps (the only points where the loop waits for the
+  device);
+* validation samples each batch with the 100-step chain, writes the outputs
+  as PNGs under ``<log_dir>/<name>/version_<k>/<epoch + 1>/`` and reduces
+  the per-image metrics as Lightning does: ``val_ssim`` the per-image mean,
+  ``val_psnr``/``val_rmse`` batch-size-weighted means of the batch values
+  computed from the batch's mean MSE;
+* ``best`` on the largest ``val_ssim``, ``last`` at every validation and at
+  the end; a non-finite loss writes the ``diverged`` slot and halts;
+  ``--resume`` continues from ``last`` at the next epoch;
+* EMA updated after every step; validation and checkpoints' evaluation
+  weights are the EMA's.
+
+Ported: the Palette branch. The GAN families' training is ROADMAP.md Queue A
+item 3, the multi-device options (``--tp``, ``--sp``, ``--fsdp``) item 7; both
+raise ``NotImplementedError``. ``--scan-steps K`` is accepted and runs K
+ordinary steps (the JAX package folds them into one compiled ``lax.scan``;
+the result is the same). ``--profile-dir`` writes a ``torch.profiler`` trace
+of the first 12 steps there.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import sys
+import time
+from typing import Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from pai_tpu_torch.config import (TRAIN_DEFAULTS, apply_precision_policy,
+                                  resolve_device, sanitize_hparams)
+from pai_tpu_torch.data import BatchLoader, ImageDataset
+from pai_tpu_torch.diffusion import make_schedule
+from pai_tpu_torch.restore import build_generator_from_hparams
+from pai_tpu_torch.train import steps as steps_lib
+from pai_tpu_torch.train.state import PaletteTrainState
+from pai_tpu_torch.utils.checkpoint import (EMA_PREFIX, OPT_PREFIX,
+                                            CheckpointManager)
+from pai_tpu_torch.utils.images import denormalize, to_int, write_png
+from pai_tpu_torch.utils.logging import CSVLogger
+
+IMAGE_SIZE = 256
+LOG_EVERY = 10
+PROFILE_STEPS = 12
+
+
+def train_state_dict(state: PaletteTrainState) -> Dict[str, torch.Tensor]:
+    """The whole train state as one flat ``state_dict``: the module's tensors
+    (parameters and running statistics), ``ema.<name>`` shadow weights and
+    ``opt.<name>.<key>`` Adam state. The tensors are the live ones, not
+    copies."""
+    flat = dict(state.model.state_dict())
+    if state.ema is not None:
+        flat.update({EMA_PREFIX + k: v for k, v in state.ema.params.items()})
+    for name, param in state.model.named_parameters():
+        for key, value in state.opt.state.get(param, {}).items():
+            flat[f"{OPT_PREFIX}{name}.{key}"] = value
+    return flat
+
+
+def load_train_state(state: PaletteTrainState,
+                     flat: Mapping[str, torch.Tensor], meta: Mapping) -> None:
+    """Restore ``state`` in place from a training slot written from
+    ``train_state_dict`` (and its meta)."""
+    model_keys = state.model.state_dict().keys()
+    state.model.load_state_dict({k: flat[k] for k in model_keys})
+    if state.ema is not None:
+        with torch.no_grad():
+            for k, v in state.ema.params.items():
+                v.copy_(flat[EMA_PREFIX + k])
+        state.ema.num_updates = int(meta.get("ema_num_updates", 0))
+    opt_sd = state.opt.state_dict()
+    for index, (name, _) in enumerate(state.model.named_parameters()):
+        prefix = f"{OPT_PREFIX}{name}."
+        entry = {k[len(prefix):]: v for k, v in flat.items()
+                 if k.startswith(prefix)}
+        if entry:
+            opt_sd["state"][index] = entry
+    state.opt.load_state_dict(opt_sd)
+    state.step = int(meta["step"])
+
+
+class Trainer:
+    """One training run of the Palette model; ``hparams`` as the train CLI
+    gives them (any missing key takes ``TRAIN_DEFAULTS``'s value), plus
+    ``name``, ``data``, ``val_data`` and ``device``."""
+
+    def __init__(self, hparams: Mapping, image_size: Optional[int] = None):
+        h = dict(TRAIN_DEFAULTS, **hparams)
+        if h["model"] != "palette":
+            raise NotImplementedError(
+                f"training '{h['model']}' is not ported to pai_tpu_torch yet: "
+                "ROADMAP.md Queue A item 3 (GAN training)")
+        if int(h.get("tp") or 1) != 1 or int(h.get("sp") or 1) != 1 \
+                or h.get("fsdp"):
+            raise NotImplementedError(
+                "--tp, --sp and --fsdp are not ported to pai_tpu_torch yet: "
+                "ROADMAP.md Queue A item 7 (multi-device layer)")
+        scan_k = int(h.get("scan_steps") or 1)
+        if scan_k < 1 or LOG_EVERY % scan_k:
+            raise ValueError("--scan-steps must divide the 10-step log "
+                             "cadence (1, 2, 5 or 10)")
+        self.hparams = h
+        self.name = h["name"]
+        self.image_size = int(image_size or h.get("image_size") or IMAGE_SIZE)
+        self.device = resolve_device(h.get("device") or "cuda")
+        self.seed = int(h.get("seed") or 0)
+        self.learn_var = bool(h.get("learn_variance", False))
+        apply_precision_policy(h["precision"])
+
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            self.seed)
+        self.model = build_generator_from_hparams(
+            h, self.image_size, generator=self.generator, device=self.device)
+        self.sched_train = make_schedule(h["schedule_type"], 2000, 1e-6, 0.01,
+                                         device=self.device)
+        self.sched_inf = make_schedule("cosine", 100, device=self.device)
+        self.sample_step = steps_lib.make_palette_sample_step(
+            self.model, self.sched_inf, self.learn_var)
+        self.logger = CSVLogger(h.get("log_dir") or "logs", self.name)
+        self.logger.log_hparams(sanitize_hparams(h))
+        self.ckpt = CheckpointManager(h.get("ckpt_dir") or "checkpoints",
+                                      self.name)
+        self.val_loader: Optional[BatchLoader] = None
+
+    # ------------------------------------------------------------------
+    def _slot(self, state: PaletteTrainState) -> tuple:
+        """What a checkpoint slot holds besides the hparams: the flat train
+        state and the EMA's update count (its decay ramp)."""
+        return (train_state_dict(state),
+                {"ema_num_updates": state.ema.num_updates
+                 if state.ema is not None else 0})
+
+    def validate(self, state: PaletteTrainState, epoch: int
+                 ) -> Dict[str, float]:
+        """Sample every validation batch, write its outputs, and reduce the
+        per-image metrics (see the module docstring)."""
+        params = steps_lib.palette_eval_params(state)
+        epoch_dir = os.path.join(self.logger.log_dir, str(epoch + 1))
+        os.makedirs(epoch_dir, exist_ok=True)
+        generator = torch.Generator(device=self.device).manual_seed(
+            self.seed + 7919 + epoch)
+        ssim_sum = psnr_wsum = rmse_wsum = 0.0
+        total = out_index = 0
+        for batch in self.val_loader:
+            y_pred, per_image = self.sample_step(params, batch.x, batch.y,
+                                                 generator)
+            n = batch.n_valid
+            frames = to_int(denormalize(y_pred[:n])).cpu().numpy()
+            for frame in frames:
+                write_png(frame, os.path.join(epoch_dir,
+                                              f"output_{out_index}.png"))
+                out_index += 1
+            ssim_sum += float(per_image["ssim"][:n].sum())
+            batch_mse = float(per_image["mse"][:n].mean())
+            psnr_wsum += n * 10.0 * math.log10(1.0 / max(batch_mse, 1e-20))
+            rmse_wsum += n * math.sqrt(batch_mse)
+            total += n
+        if total == 0:
+            return {}
+        return {"val_ssim": ssim_sum / total, "val_psnr": psnr_wsum / total,
+                "val_rmse": rmse_wsum / total}
+
+    # ------------------------------------------------------------------
+    def fit(self) -> Dict[str, float]:
+        h = self.hparams
+        bs = int(h["batch_size"])
+        train_dataset = ImageDataset(h["data"], self.image_size)
+        spe = math.ceil(len(train_dataset) / bs) \
+            if h.get("warmup_unit", "epoch") == "epoch" else None
+        train_step = steps_lib.make_palette_train_step(
+            self.model, self.sched_train, self.learn_var,
+            warmup_steps_per_epoch=spe, generator=self.generator,
+            seed=self.seed)
+        val_dataset = ImageDataset(h["val_data"], self.image_size) \
+            if h.get("val_data") else None
+        self.val_loader = BatchLoader(val_dataset, bs, shuffle=False,
+                                      pad_mode="zero", device=self.device) \
+            if val_dataset else None
+        loader = BatchLoader(train_dataset, bs, shuffle=True,
+                             pad_mode="cycle", seed=self.seed,
+                             device=self.device)
+
+        state = steps_lib.init_palette_state(self.model, bool(h["ema"]))
+        start_epoch = 0
+        if h.get("resume"):
+            try:
+                flat, meta = self.ckpt.restore("last")
+            except FileNotFoundError:
+                pass
+            else:
+                load_train_state(state, flat, meta)
+                start_epoch = meta["epoch"] + 1
+                print(f"[pai_tpu_torch] resumed from epoch {meta['epoch']} "
+                      f"(step {meta['step']})", flush=True)
+
+        profiler = None
+        if h.get("profile_dir"):
+            profiler = torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]
+                + ([torch.profiler.ProfilerActivity.CUDA]
+                   if self.device.type == "cuda" else []))
+            profiler.start()
+
+        max_steps = int(h["steps"])
+        last_val: Dict[str, float] = {}
+        images_seen = 0
+        done = False
+        t0 = time.time()
+        epoch = start_epoch - 1  # resume may already satisfy the budget
+        try:
+            for epoch in range(start_epoch, int(h["epochs"])):
+                loader.epoch = epoch  # the epoch's seeded order
+                for batch in loader:
+                    state, step_metrics = train_step(state, batch.x, batch.y)
+                    images_seen += batch.n_valid
+                    if state.step % LOG_EVERY == 0:
+                        vals = {k: float(v) for k, v in step_metrics.items()}
+                        self.logger.log_metrics(vals, state.step, epoch)
+                        rate = images_seen / max(time.time() - t0, 1e-9)
+                        print(f"[pai_tpu_torch] epoch {epoch + 1} step "
+                              f"{state.step} " + " ".join(
+                                  f"{k}={v:.4f}" for k, v in vals.items())
+                              + f" | {rate:.1f} img/s", file=sys.stderr,
+                              flush=True)
+                        if not np.isfinite(vals["loss"]):
+                            flat, extra = self._slot(state)
+                            self.ckpt.save_diverged(flat, h, state.step,
+                                                    epoch, **extra)
+                            raise FloatingPointError(
+                                f"non-finite loss at step {state.step} "
+                                "(diverged state saved for postmortem; "
+                                "--resume recovers from the last "
+                                "checkpoint)")
+                    if profiler is not None and state.step >= PROFILE_STEPS:
+                        self._stop_profiler(profiler)
+                        profiler = None
+                    if max_steps > 0 and state.step >= max_steps:
+                        done = True
+                        break
+
+                if (epoch + 1) % int(h["val_epochs"]) == 0 \
+                        and self.val_loader is not None:
+                    last_val = self.validate(state, epoch)
+                    if last_val:
+                        self.logger.log_metrics(last_val, state.step, epoch)
+                        print(f"[pai_tpu_torch] epoch {epoch + 1} step "
+                              f"{state.step}: " + " ".join(
+                                  f"{k}={v:.4f}" for k, v in last_val.items()),
+                              flush=True)
+                        flat, extra = self._slot(state)
+                        ssim = last_val["val_ssim"]
+                        self.ckpt.maybe_save_best(flat, h, state.step, epoch,
+                                                  ssim, **extra)
+                        self.ckpt.save_last(flat, h, state.step, epoch, ssim,
+                                            **extra)
+                if done:
+                    break
+        finally:
+            loader.close()
+            if self.val_loader is not None:
+                self.val_loader.close()
+            if profiler is not None:
+                self._stop_profiler(profiler)
+
+        flat, extra = self._slot(state)
+        self.ckpt.save_last(flat, h, state.step, epoch,
+                            last_val.get("val_ssim"), **extra)
+        wall = time.time() - t0
+        return {"steps": state.step,
+                "images_per_sec": images_seen / wall if wall > 0 else 0.0,
+                **last_val}
+
+    def _stop_profiler(self, profiler) -> None:
+        profiler.stop()
+        os.makedirs(self.hparams["profile_dir"], exist_ok=True)
+        path = os.path.join(self.hparams["profile_dir"], "trace.json")
+        profiler.export_chrome_trace(path)
+        print(f"[pai_tpu_torch] profile written to {path}", flush=True)
+
+
+def fit(hparams: Mapping) -> Dict[str, float]:
+    return Trainer(hparams).fit()

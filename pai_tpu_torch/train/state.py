@@ -1,0 +1,58 @@
+"""Palette's optimizer, learning-rate schedule and train state, counterpart of
+``pai_tpu/train/state.py``.
+
+Adam with lr 1e-4, betas (0.9, 0.999), eps 1e-8 (``torch.optim.Adam``: the
+optimizer is plain PyTorch, not one of the TPU kernels; its fused CUDA
+implementation on the card, which keeps no parameter-sized temporaries). The
+learning rate follows torch ``LinearLR``'s warmup as the JAX package
+reproduces it, ``1e-4 * (1/3 + 2/3 * min(unit, 10000) / 10000)``, where
+``unit`` is the optimizer step or, by default, the epoch
+(``step // steps_per_epoch``: Lightning steps the reference's scheduler once
+per epoch). It is read at the count before the step, as optax reads its
+schedule, and computed in float32 as the JAX package computes it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterable, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from pai_tpu_torch.train.ema import EmaState
+
+BASE_LR = 1e-4
+WARMUP_ITERS = 10000
+
+
+def palette_lr(step: int, steps_per_epoch: Optional[int] = None,
+               warmup_iters: int = WARMUP_ITERS,
+               base_lr: float = BASE_LR) -> float:
+    """The learning rate of the optimizer step that starts at count
+    ``step``."""
+    unit = step if steps_per_epoch is None else step // steps_per_epoch
+    frac = np.float32(min(unit, warmup_iters)) / np.float32(warmup_iters)
+    factor = np.float32(1.0 / 3.0) + np.float32(1.0 - 1.0 / 3.0) * frac
+    return float(np.float32(base_lr) * factor)
+
+
+def palette_optimizer(params: Iterable[torch.nn.Parameter],
+                      base_lr: float = BASE_LR) -> torch.optim.Adam:
+    params = list(params)
+    fused = bool(params) and params[0].is_cuda
+    return torch.optim.Adam(params, lr=base_lr, betas=(0.9, 0.999), eps=1e-8,
+                            fused=fused)
+
+
+@dataclasses.dataclass
+class PaletteTrainState:
+    """``model`` holds the parameters and the BatchNorm running statistics
+    (the JAX state's ``params`` and ``stats``); ``step`` counts optimizer
+    steps."""
+
+    step: int
+    model: nn.Module
+    opt: torch.optim.Adam
+    ema: Optional[EmaState] = None

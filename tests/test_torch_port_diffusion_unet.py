@@ -175,8 +175,9 @@ def test_resblock_matches_jax(in_ch, out_ch, up, down):
         jax.random.key(0), jnp.asarray(x), jnp.asarray(emb), False))
     params = numpy_tree_like(abstract["params"], rng, "params")
     stats = numpy_tree_like(abstract["batch_stats"], rng, "stats")
-    want = module.apply({"params": params, "batch_stats": stats},
-                        jnp.asarray(x), jnp.asarray(emb), False)
+    want = jax.jit(module.apply, static_argnums=3)(
+        {"params": params, "batch_stats": stats}, jnp.asarray(x),
+        jnp.asarray(emb), False)
     block = tdu.ResBlock(in_ch, out_ch, 16, up=up, down=down).eval()
     names = (_bn_map("in_layers.0", "norm_in")
              + _conv_map("in_layers.2", "conv_in")
@@ -235,12 +236,12 @@ def _inputs(size, seed, n):
 
 # 16², attention at 8x8 and the 8x8 middle block; then one case whose
 # attention crosses the 4,096-token threshold (64², one level: T = 4096,
-# inner 128 so that D = 32, one image): the plain flash version on this
-# side, the blockwise formulation on the JAX side
-@pytest.mark.parametrize("mults,attn,size,learn_var,inner", [
-    ((1, 2), (2,), 16, False, 32), ((1, 2), (2,), 16, True, 32),
-    ((1,), (1,), 64, False, 128)])
-def test_unet_forward_matches_jax(mults, attn, size, learn_var, inner,
+# inner 32 in one head so that D = 32, one image): the plain flash version
+# on this side, the blockwise formulation on the JAX side
+@pytest.mark.parametrize("mults,attn,size,learn_var,inner,heads", [
+    ((1, 2), (2,), 16, False, 32, 4), ((1, 2), (2,), 16, True, 32, 4),
+    ((1,), (1,), 64, False, 32, 1)])
+def test_unet_forward_matches_jax(mults, attn, size, learn_var, inner, heads,
                                   monkeypatch):
     from pai_tpu_torch.ops import attention as port_attention
 
@@ -249,13 +250,15 @@ def test_unet_forward_matches_jax(mults, attn, size, learn_var, inner,
     monkeypatch.setattr(port_attention, "flash_attention",
                         lambda *a: flash_calls.append(a[0].shape) or real(*a))
     module, params, stats = palette_numpy_variables(
-        mults, attn, size, seed=5, learn_var=learn_var, inner=inner)
+        mults, attn, size, seed=5, learn_var=learn_var, inner=inner,
+        num_heads=heads)
     n = 1 if size == 64 else 2
     x, y, gammas = _inputs(size, 6, n)
-    want = np.asarray(module.apply(
+    want = np.asarray(jax.jit(module.apply, static_argnames="train")(
         {"params": params, "batch_stats": stats}, jnp.asarray(x),
         jnp.asarray(y), jnp.asarray(gammas), train=False))
-    model = port_palette_model(mults, attn, params, stats, learn_var, inner)
+    model = port_palette_model(mults, attn, params, stats, learn_var, inner,
+                               heads)
     with torch.inference_mode():
         got = model(torch.from_numpy(x), torch.from_numpy(y),
                     torch.from_numpy(gammas))
@@ -264,7 +267,7 @@ def test_unet_forward_matches_jax(mults, attn, size, learn_var, inner,
     assert float(np.abs(want).mean()) > 0.1  # not a vacuous comparison
     _close(got.numpy(), want, scale=float(np.abs(want).max()))
     if size == 64:  # 2 input blocks, the middle block, 3 output blocks
-        assert flash_calls == [(1, 4, 4096, 32)] * 6
+        assert flash_calls == [(1, 1, 4096, 32)] * 6
     else:
         assert not flash_calls
 

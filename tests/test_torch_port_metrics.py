@@ -120,12 +120,14 @@ def test_scalar_metrics_match_jax(name):
                                         (71, 24, 6)])
 def test_depth_ssim_matches_jax(h, w, depths):
     p, t = _pair((3, h, w, 1), seed=4)
-    want_per = jm.depth_ssim_per_image(jnp.asarray(p), jnp.asarray(t), depths)
+    want_per = jax.jit(jm.depth_ssim_per_image, static_argnums=2)(
+        jnp.asarray(p), jnp.asarray(t), depths)
     got_per = tm.depth_ssim_per_image(torch.from_numpy(p),
                                       torch.from_numpy(t), depths)
     assert got_per.shape == want_per.shape
     _close(got_per, want_per, PER_IMAGE_TOL)
-    want = jm.depth_ssim(jnp.asarray(p), jnp.asarray(t), depths)
+    want = jax.jit(jm.depth_ssim, static_argnums=2)(
+        jnp.asarray(p), jnp.asarray(t), depths)
     got = tm.depth_ssim(torch.from_numpy(p), torch.from_numpy(t), depths)
     _close(got, want, PER_IMAGE_TOL)
 
@@ -142,8 +144,8 @@ def test_ssim_gradient_matches_jax(fn):
     """d(-mean per-image SSIM)/d pred through the port's autograd.Function
     (whose backward recomputes through the plain version) vs jax.grad."""
     p, t = _pair((2, 32, 32, 1), seed=6)
-    want = jax.grad(lambda a: -jnp.mean(
-        jm.ssim_parts_xla(a, jnp.asarray(t))[0]))(jnp.asarray(p))
+    want = jax.jit(jax.grad(lambda a: -jnp.mean(
+        jm.ssim_parts_xla(a, jnp.asarray(t))[0])))(jnp.asarray(p))
     pt = torch.from_numpy(p).requires_grad_(True)
     out = getattr(tm, fn)(pt, torch.from_numpy(t))
     per_image = out if fn == "ssim_per_image" else out[0]
@@ -193,4 +195,5 @@ def test_cpu_tensors_launch_no_kernel():
     tm.ssim_parts(torch.from_numpy(p), torch.from_numpy(t))
     tm.ssim_per_image(torch.from_numpy(p), torch.from_numpy(t))
     assert kernels.launch_counts == before
-    assert set(before) == {"ssim_map", "ssim_scalar", "flash_fwd"}
+    assert set(before) == {"ssim_map", "ssim_scalar", "flash_fwd",
+                           "flash_bwd_dq", "flash_bwd_dkv"}

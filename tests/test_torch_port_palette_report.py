@@ -2,8 +2,8 @@
 output_process=True)`` and ``api.Palette`` from one small checkpoint.
 
 Sizes: 2 images of 176x176 (the smallest size whose depth bands hold an
-11-tap window), channel mults (1,1,1) with attention at downsample rate 4
-(44x44 = 1,936 tokens, the full-softmax path) and in the middle block. The
+11-tap window), channel mults (1,1,1,1) with attention at downsample rate 8
+(22x22 = 484 tokens, the full-softmax path) and in the middle block. The
 registry fixes Palette's base width at 128; the test narrows it to 16 by
 wrapping the class the registry builds, and shortens the inference schedule
 from 100 steps to 8 by patching ``pai_tpu_torch.reporting.make_schedule`` (the
@@ -12,8 +12,6 @@ few seconds long. 8 steps captured every 8 // 7 = 1 give the same 9 frames
 the 100-step chain keeps."""
 
 import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -27,11 +25,11 @@ from pai_tpu_torch.models import diffusion_unet, registry
 from pai_tpu_torch.utils import images as ti
 from pai_tpu_torch.utils import metrics
 from pai_tpu_torch.utils.checkpoint import save_eval_checkpoint
-from torch_port_util import write_blob_dataset
+from torch_port_util import fresh_interpreter_imports, write_blob_dataset
 
 SIZE, N_IMAGES, STEPS, INNER = 176, 2, 8, 16
-HPARAMS = dict(TRAIN_DEFAULTS, model="palette", channel_mults="1,1,1",
-               attention_res="4", dropout=0.0, precision="32",
+HPARAMS = dict(TRAIN_DEFAULTS, model="palette", channel_mults="1,1,1,1",
+               attention_res="8", dropout=0.0, precision="32",
                image_size=SIZE, ema=True, loss_type="mse",
                learn_variance=False)
 
@@ -52,8 +50,8 @@ def slice_run(tmp_path_factory):
     manifest = write_blob_dataset(root, N_IMAGES, SIZE, seed=21,
                                   write_png=ti.write_png)
     gen = torch.Generator().manual_seed(22)
-    model = registry.build_generator("palette", channel_mults=(1, 1, 1),
-                                     attention_res=(4,), generator=gen)
+    model = registry.build_generator("palette", channel_mults=(1, 1, 1, 1),
+                                     attention_res=(8,), generator=gen)
     with torch.no_grad():  # the zero-initialised layers, or the output is 0
         for module in model.modules():
             if isinstance(module, (diffusion_unet.ZeroConv,
@@ -151,7 +149,7 @@ def test_api_output_process_frames(slice_run):
 
 
 def test_flops_include_attention(slice_run, monkeypatch):
-    """6 attention blocks (2 input, the middle, 3 output) at T = 1,936, 4
+    """6 attention blocks (2 input, the middle, 3 output) at T = 484, 4
     heads of D = INNER / 4: the reported FLOPs hold 4*H*T*T*D for each."""
     from pai_tpu_torch.utils.flops import count_flops
 
@@ -162,7 +160,7 @@ def test_flops_include_attention(slice_run, monkeypatch):
     monkeypatch.setattr(diffusion_unet, "multihead_attention",
                         lambda q, k, v: v)
     without = count_flops(unet, probe, probe, gamma)
-    t = (SIZE // 4) ** 2
+    t = (SIZE // 8) ** 2
     assert slice_run["stats"]["flops"] - without == \
         6 * 4 * 4 * t * t * (INNER // 4)
 
@@ -176,15 +174,34 @@ def test_ema_weights_are_what_evaluation_runs(slice_run):
     assert not slice_run["model"]._module.training
 
 
+def _jax_palette_init_defaults():
+    """The JAX package's ``Palette.__init__`` defaults, read from its source
+    (importing ``pai_tpu.api`` would load the whole JAX trainer)."""
+    import ast
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "pai_tpu", "api.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    cls = next(node for node in tree.body if isinstance(node, ast.ClassDef)
+               and node.name == "Palette")
+    init = next(node for node in cls.body
+                if isinstance(node, ast.FunctionDef)
+                and node.name == "__init__")
+    args = init.args.args[1:]
+    defaults = init.args.defaults
+    return {a.arg: ast.literal_eval(d)
+            for a, d in zip(args[len(args) - len(defaults):], defaults)}
+
+
 def test_palette_api_defaults_match_jax():
-    from pai_tpu.api import Palette as JaxPalette
     import inspect
 
     ours = inspect.signature(Palette.__init__).parameters
-    theirs = inspect.signature(JaxPalette.__init__).parameters
-    for name, param in theirs.items():
-        if name != "self":
-            assert ours[name].default == param.default, name
+    theirs = _jax_palette_init_defaults()
+    assert len(theirs) >= 8
+    for name, default in theirs.items():
+        assert ours[name].default == default, name
     assert ours["device"].default == "cuda"
     model = Palette(device="cpu")
     assert model.hparams["channel_mults"] == "1,1,2,2,4,4"
@@ -194,18 +211,15 @@ def test_palette_api_defaults_match_jax():
 
 
 def test_new_modules_import_without_jax_or_triton():
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    code = (
-        "import importlib, sys\n"
-        "for name in ['kernels.flash_attention', 'ops.attention', "
-        "'models.diffusion_unet', 'diffusion', 'diffusion.schedule', "
-        "'diffusion.gaussian', 'diffusion.sampler', 'reporting', 'api']:\n"
-        "    importlib.import_module('pai_tpu_torch.' + name)\n"
-        "banned = {'jax', 'jaxlib', 'flax', 'orbax', 'pai_tpu', 'triton'}\n"
-        "loaded = {m.split('.')[0] for m in sys.modules}\n"
-        "assert not (banned & loaded), banned & loaded\n"
-        "print('clean')\n")
-    out = subprocess.run([sys.executable, "-c", code], cwd=repo,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.startswith("clean")
+    """The modules of the Palette slices, imported in a fresh interpreter
+    (the one ``fresh_interpreter_imports`` starts for every port module),
+    load neither JAX nor the JAX package nor triton."""
+    result = fresh_interpreter_imports()
+    for name in ["kernels.flash_attention", "ops.attention",
+                 "models.diffusion_unet", "diffusion", "diffusion.schedule",
+                 "diffusion.gaussian", "diffusion.sampler", "reporting", "api",
+                 "train.ema", "train.state", "train.steps", "train.loop",
+                 "utils.logging", "utils.checkpoint", "main"]:
+        assert "pai_tpu_torch." + name in result["modules"], name
+    banned = {"jax", "jaxlib", "flax", "optax", "orbax", "pai_tpu", "triton"}
+    assert not banned & set(result["loaded"])

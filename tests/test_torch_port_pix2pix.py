@@ -41,7 +41,7 @@ def test_forward_matches_jax(mults):
     module, params, stats = pix2pix_numpy_variables(mults, 32, seed=4)
     x = np.random.default_rng(5).uniform(-1, 1, (2, 32, 32, 1)
                                          ).astype(np.float32)
-    want = np.asarray(module.apply(
+    want = np.asarray(jax.jit(module.apply, static_argnames="train")(
         {"params": params, "batch_stats": stats}, jnp.asarray(x),
         train=False))
     model = _port_model(mults, params, stats)

@@ -13,22 +13,20 @@ Tolerance 1e-4 on every statistic (float32 forward and float32 SSIM summed in
 different orders, see the module tests); PNGs within one grey level."""
 
 import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
 import torch
 
 from pai_tpu_torch import reporting as port_reporting
-from pai_tpu_torch.api import (AttentionUnetGAN, Palette, Pix2Pix,
-                               TransUnetGAN)
+from pai_tpu_torch.api import AttentionUnetGAN, Pix2Pix, TransUnetGAN
 from pai_tpu_torch.data import BatchLoader, ImageDataset
 from pai_tpu_torch.interop import state_dict_from_jax
 from pai_tpu_torch.utils import images as ti
 from pai_tpu_torch.utils.checkpoint import (load_checkpoint,
                                             save_eval_checkpoint)
-from torch_port_util import pix2pix_numpy_variables, write_blob_dataset
+from torch_port_util import (fresh_interpreter_imports,
+                             pix2pix_numpy_variables, write_blob_dataset)
 
 SIZE, N_IMAGES, BATCH, MULTS = 176, 6, 4, (1, 2)
 TOL = 1e-4
@@ -253,8 +251,8 @@ def test_entry_points_default_to_the_card_and_raise_without_one(reports):
 def test_unported_api_surface_names_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Pix2Pix(device="cpu").fit("run", "data.yaml")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        Palette(device="cpu").fit("run", "data.yaml")
+    with pytest.raises(NotImplementedError, match="item 3"):
+        Pix2Pix(device="cpu").fit("run", "data.yaml")  # Palette's is ported
     for cls in (AttentionUnetGAN, TransUnetGAN):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cls(device="cpu")
@@ -269,22 +267,9 @@ def test_unported_api_surface_names_the_roadmap():
 
 def test_port_imports_no_jax_and_none_of_the_helpers_it_replaces():
     """In a fresh interpreter, importing every module of the port leaves jax,
-    flax, orbax, pai_tpu, yaml, PIL and matplotlib unimported."""
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    code = (
-        "import importlib, pkgutil, sys\n"
-        "import pai_tpu_torch\n"
-        "names = [m.name for m in pkgutil.walk_packages("
-        "pai_tpu_torch.__path__, 'pai_tpu_torch.')]\n"
-        "assert len(names) >= 20, names\n"
-        "for name in names:\n"
-        "    importlib.import_module(name)\n"
-        "banned = {'jax', 'jaxlib', 'flax', 'orbax', 'pai_tpu', 'yaml', "
-        "'PIL', 'matplotlib', 'triton'}\n"
-        "loaded = {m.split('.')[0] for m in sys.modules}\n"
-        "assert not (banned & loaded), banned & loaded\n"
-        "print('clean', len(names))\n")
-    out = subprocess.run([sys.executable, "-c", code], cwd=repo,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.startswith("clean")
+    flax, optax, orbax, pai_tpu, yaml, PIL and matplotlib unimported."""
+    result = fresh_interpreter_imports()
+    assert len(result["modules"]) >= 20, result["modules"]
+    banned = {"jax", "jaxlib", "flax", "optax", "orbax", "pai_tpu", "yaml",
+              "PIL", "matplotlib", "triton"}
+    assert not banned & set(result["loaded"])

@@ -1,7 +1,46 @@
 """Shared helpers of the tests/test_torch_port_*.py files: numpy-made weights
-and data handed to both the JAX package and the PyTorch port."""
+and data handed to both the JAX package and the PyTorch port, and one fresh
+interpreter that imports the whole port.
+
+Importing this module caps PyTorch at one intra-op thread for the process.
+The port's CPU tests run thousands of tiny ops, which threads do not speed
+up; and where several test processes share the cores (pytest-xdist), OpenMP
+threads that spin at every op's barrier while their siblings wait for a core
+slow such a test by ten times or more. Every xdist worker collects every test
+file, so the cap holds in each worker before its first test."""
+
+import functools
+import json
+import os
+import subprocess
+import sys
 
 import numpy as np
+import torch
+
+torch.set_num_threads(1)
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@functools.lru_cache(maxsize=None)
+def fresh_interpreter_imports():
+    """Import every module of ``pai_tpu_torch`` in one fresh interpreter (run
+    once per test process, whichever test asks first) and return
+    ``{"modules": [...], "loaded": [top-level names in sys.modules]}``."""
+    code = (
+        "import importlib, json, pkgutil, sys\n"
+        "import pai_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages("
+        "pai_tpu_torch.__path__, 'pai_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "loaded = sorted({m.split('.')[0] for m in sys.modules})\n"
+        "print(json.dumps({'modules': names, 'loaded': loaded}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=_REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.splitlines()[-1])
 
 
 def numpy_tree_like(abstract, rng, kind):
@@ -46,9 +85,9 @@ def pix2pix_numpy_variables(mults, size, seed):
 
 
 def palette_numpy_variables(mults, attn_res, size, seed, learn_var=False,
-                            inner=32):
+                            inner=32, num_heads=4):
     """(flax module, params, batch_stats) for a Palette DiffusionUNet (2
-    input channels, 2 res blocks, 4 heads, ``inner`` base width) with
+    input channels, 2 res blocks, ``num_heads`` heads, ``inner`` base width) with
     numpy-made weights. The layers flax zero-initialises (every ResBlock's
     ``conv_out``, every attention ``proj``, ``out_conv``) get non-zero values
     like any other layer — at half the scale, so the residual stream grows
@@ -61,7 +100,7 @@ def palette_numpy_variables(mults, attn_res, size, seed, learn_var=False,
     module = DiffusionUNet(in_channels=2, out_channels=2 if learn_var else 1,
                            inner_channel=inner, res_blocks=2,
                            channel_mults=tuple(mults),
-                           attn_res=tuple(attn_res), num_heads=4)
+                           attn_res=tuple(attn_res), num_heads=num_heads)
     zeros = jnp.zeros((1, size, size, 1))
     abstract = jax.eval_shape(
         lambda: module.init(jax.random.key(0), zeros, zeros,
@@ -77,7 +116,7 @@ def palette_numpy_variables(mults, attn_res, size, seed, learn_var=False,
 
 
 def port_palette_model(mults, attn_res, params, stats, learn_var=False,
-                       inner=32):
+                       inner=32, num_heads=4):
     """The port's DiffusionUNet of the same shape, in eval mode, carrying
     ``params``/``batch_stats`` through ``state_dict_from_jax``."""
     import torch
@@ -87,7 +126,7 @@ def port_palette_model(mults, attn_res, params, stats, learn_var=False,
     model = DiffusionUNet(in_channels=2, out_channels=2 if learn_var else 1,
                           inner_channel=inner, res_blocks=2,
                           channel_mults=tuple(mults),
-                          attn_res=tuple(attn_res), num_heads=4,
+                          attn_res=tuple(attn_res), num_heads=num_heads,
                           generator=torch.Generator().manual_seed(0))
     model.load_state_dict(
         state_dict_from_jax("palette", params, stats,
