@@ -1,9 +1,12 @@
 """Hand-written CUDA kernels for Hopper — the native compute tier of the port
 (the JAX package's counterpart is its Pallas tier, ``pai_tpu/kernels``).
 
-The sources live in ``csrc/`` and are compiled for ``sm_90a`` with ``nvcc``
-the first time a kernel is launched, one ``nvcc`` process per source file, all
-started together, into ``build/`` next to this file (git-ignored). Each source
+The sources live in ``csrc/`` (``*.cu``, and ``*.cuh`` headers they share)
+and are compiled for ``sm_90a`` with ``nvcc`` the first time a kernel is
+launched, one ``nvcc`` process per source file, all started together, into
+``build/`` next to this file (git-ignored). nvcc's stderr of each build,
+``ptxas``'s resource report (registers, spills per kernel instantiation)
+among it, is kept beside the library and read with ``build_log``. Each source
 exposes a plain C interface and is loaded with ``ctypes``; nothing is built or
 loaded when a module is imported, so hosts without a CUDA toolkit can import
 every module of the package.
@@ -34,7 +37,7 @@ CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # One library per source file: name -> source under csrc/.
 SOURCES = {"ssim": "ssim.cu", "flash_attention": "flash_attention.cu",
@@ -83,8 +86,13 @@ def find_nvcc() -> str:
 
 
 def _library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by a digest of its source, every shared
+    header and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for source in [SOURCES[name], *headers]:
+        with open(os.path.join(CSRC_DIR, source), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"libpai_{name}_{digest.hexdigest()[:16]}.so")
 
 
@@ -96,7 +104,7 @@ def _build_all() -> None:
     jobs = []
     for name, source in SOURCES.items():
         out = _library_path(name)
-        if os.path.exists(out):
+        if os.path.exists(out) and os.path.exists(out + ".log"):
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
         cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
@@ -111,11 +119,26 @@ def _build_all() -> None:
             if os.path.exists(tmp):
                 os.remove(tmp)
         else:
-            os.replace(tmp, out)  # atomic: a reader never sees half a file
+            with open(f"{tmp}.log", "w") as f:
+                f.write(stderr)
+            # atomic, log first: a reader never sees half a file, nor a
+            # library without its log
+            os.replace(f"{tmp}.log", out + ".log")
+            os.replace(tmp, out)
     if failures:
         raise KernelCompileError("nvcc failed:\n" + "\n".join(failures))
     if build_seconds is None:
         build_seconds = time.perf_counter() - start
+
+
+def build_log(name: str) -> str:
+    """nvcc's stderr of the build of one kernel library (with ``-Xptxas -v``:
+    registers and spills of every kernel instantiation), built first if need
+    be; it is kept beside the library, so it outlives the process that built
+    it."""
+    load_library(name)
+    with open(_library_path(name) + ".log") as f:
+        return f.read()
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -1,4 +1,4 @@
-// Flash-attention backward for Hopper (sm_90a), float32 FMAs on the CUDA cores.
+// Flash-attention backward for Hopper (sm_90a).
 //
 // Replaces the two TPU kernels of pai_tpu/kernels/flash_attention.py's
 // _flash_backward: _bwd_dq_kernel (pallas_call at :290) and _bwd_dkv_kernel
@@ -12,14 +12,12 @@
 //     dQ = s^2 dS K                      flash_bwd_dq_kernel
 //     dV = P^T dO,  dK = s^2 dS^T Q      flash_bwd_dkv_kernel
 //
-// Operands are float or bfloat16 (converted to float as they are loaded);
-// every product and sum is float32; the outputs are written in the operands'
-// type.
+// Operands are float or bfloat16; P and dS are float32 and every sum is
+// float32; the outputs are written in the operands' type.
 //
 // What bounds them on an H100: operations. dq does three products of
 // 2*T^2*D per head (6*B*H*T^2*D), dkv four (8*B*H*T^2*D), against some
-// 8*B*H*T*D elements moved: the 67 TFLOP/s of the CUDA cores are the limit.
-// The design follows the forward kernel (flash_attention.cu):
+// 8*B*H*T*D elements moved.
 //
 // * Each output tile has exactly one writer, as on the TPU: dq's block owns
 //   one (batch*head, 64-row query tile) and loops over the K/V tiles; dkv's
@@ -27,25 +25,19 @@
 //   No atomics, so the result is bit-reproducible, and lse and delta are
 //   inputs, never recomputed inside: a caller may pass a global lse that
 //   spans more keys than the ones it hands over (ring attention's hops).
-// * 256 threads as a 16 x 16 grid; thread (ty, tx) owns rows ty + 16 i and
-//   columns tx + 16 j of every T x T tile, and rows ty + 16 i, columns
-//   (16 j + tx) * VW + c of its block's D-wide accumulators, which stay in
-//   registers from the first tile to the last.
-// * dkv works in the transposed frame: its tile is S^T = K Q^T, rows keys,
-//   columns queries, so P^T and dS^T are written to shared memory row-major
-//   and both of its accumulating products read them like the forward reads
-//   P. No product reads shared memory along a column.
-// * Both products of a tile that reduce over D (S and dP) run in one loop
-//   over D: each 16-byte load of an operand row feeds two FMA chains.
-// * Rows are padded (D + 4 floats; P/dS rows BQ + 16) so that the 16-byte
-//   loads of a quarter-warp fall into distinct banks and the two half-warps
-//   of a warp write P and dS to disjoint banks.
-// * The operand that is only ever multiplied into the logits (Q in dq, K in
-//   dkv) is pre-multiplied by s^2 * log2(e), lse is taken to log2 units, and
-//   the exponential is exp2f.
-// * Float operands of the streamed tiles arrive by cp.async; bfloat16 ones
-//   are converted on the way in. One stage: the copy is not yet overlapped
-//   with the products (ROADMAP.md Queue D).
+// * dkv runs on the tensor cores (flash_mma.cuh; its design is described
+//   above the kernel below), in the transposed frame S^T = K Q^T.
+// * dq still runs float32 FMAs on the CUDA cores (bfloat16 operands are
+//   converted as they are loaded; the 67 TFLOP/s of the CUDA cores bound
+//   it). 256 threads as a 16 x 16 grid; thread (ty, tx) owns rows ty + 16 i
+//   and columns tx + 16 j of every T x T tile, and rows ty + 16 i, columns
+//   (16 j + tx) * VW + c of its D-wide accumulator, which stays in registers
+//   from the first tile to the last. S and dP of a tile run in one loop over
+//   D (each 16-byte load of an operand row feeds two FMA chains); rows are
+//   padded (D + 4 floats; dS rows BK + 16) so that the 16-byte loads of a
+//   quarter-warp fall into distinct banks; Q is pre-multiplied by
+//   s^2 * log2(e), lse is taken to log2 units and the exponential is exp2f;
+//   float K/V tiles arrive by cp.async, one stage (ROADMAP.md Queue D).
 //
 // Dynamic shared memory (up to 211,968 bytes), so each instantiation is given
 // cudaFuncAttributeMaxDynamicSharedMemorySize before its launch. Plain C
@@ -55,7 +47,11 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "flash_mma.cuh"
+
 namespace {
+
+using flash_mma::Warp;
 
 constexpr int kThreads = 256;
 constexpr float kLog2e = 1.44269504088896340736f;
@@ -370,50 +366,60 @@ flash_bwd_dq_kernel(const BwdParams p) {
 }
 
 // ------------------------------------------------------------------ dK, dV
-template <int D, int BK, int BQ> struct DkvLayout {
-    static constexpr int kStride = D + 4;
-    static constexpr int kPStride = BQ + 16;
+// On the tensor cores (flash_mma.cuh): bf16 m16n8k16 for bfloat16 operands
+// (P^T and dS^T as two bf16 terms each), 3xTF32 m16n8k8 for float32 ones.
+// One block owns BK keys of one batch*head (and DO of the D output columns)
+// and loops over BQ-row query tiles; each of its BK/16 warps owns 16 keys.
+// All four products read their A operand from the warp's own rows:
+//     S^T = K Q^T,  dP^T = V dO^T    (A: K, V rows in shared memory, fixed
+//                                     for the whole loop; B: the Q, dO tile)
+//     dV += P^T dO,  dK += dS^T Q    (A: P^T, dS^T straight from the
+//                                     accumulator fragments, in registers)
+// K and V stay in shared memory and their fragments are loaded per tile, not
+// held in registers: held, they would take D/2 (bf16) or 2D (TF32 hi and lo)
+// registers a thread beside dK and dV (D), S^T and dP^T (BQ), where the
+// kernel already uses 228-255 of 255. Q, dO, lse and delta arrive by cp.async
+// in a ring of two stages; K and V are copied once. float32 fragments are
+// split into TF32 hi/lo as they are loaded, as in the forward
+// (flash_attention.cu says why). Where the dK and dV accumulators of 16 keys
+// would not fit in a thread's registers (D = 256: 256 of them), the grid's z
+// axis splits the output columns into halves of DO (S^T and dP^T, which
+// reduce over all of D, are computed by both).
+template <typename T, int D, int BK, int BQ> struct DkvLayout {
+    static constexpr int kStride = D + Warp<T>::kPad;  // elements per row
     static constexpr int kK = 0;
     static constexpr int kV = kK + BK * kStride;
-    static constexpr int kQ = kV + BK * kStride;
-    static constexpr int kDo = kQ + BQ * kStride;
-    static constexpr int kP = kDo + BQ * kStride;
-    static constexpr int kDs = kP + BK * kPStride;
-    static constexpr int kLse = kDs + BK * kPStride;
-    static constexpr int kDelta = kLse + BQ;
-    static constexpr int kFloats = kDelta + BQ;
-    static constexpr int kBytes = kFloats * 4;
+    static constexpr int kQ = kV + BK * kStride;        // 2 stages
+    static constexpr int kDo = kQ + 2 * BQ * kStride;   // 2 stages
+    static constexpr int kElems = kDo + 2 * BQ * kStride;
+    // then float32 lse and delta, 2 stages each
+    static constexpr int kStats = kElems * static_cast<int>(sizeof(T));
+    static constexpr int kBytes = kStats + 4 * BQ * 4;
 };
 
-template <typename T, int D, int BK, int BQ>
-__global__ void __launch_bounds__(kThreads, (D <= 64 ? 2 : 1))
+template <typename T, int D, int DO, int BK, int BQ>
+__global__ void __launch_bounds__(2 * BK, 1)
 flash_bwd_dkv_kernel(const BwdParams p) {
-    using L = DkvLayout<D, BK, BQ>;
-    constexpr int RK = BK / 16;            // key rows per thread
-    constexpr int CQ = BQ / 16;            // query columns per thread
-    constexpr int VW = (D >= 64) ? 4 : 2;
-    constexpr int NV = D / 16 / VW;
+    using L = DkvLayout<T, D, BK, BQ>;
+    using W = Warp<T>;
+    constexpr int NT = 2 * BK;       // threads: BK / 16 warps
     constexpr int S = L::kStride;
-    constexpr int PS = L::kPStride;
+    constexpr int QT = BQ / 8;       // 8-column tiles of S^T (queries)
+    constexpr int OT = DO / 8;       // 8-column tiles of dK and dV
+    constexpr int kStatVecs = BQ / 4;
 
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    float* smem = reinterpret_cast<float*>(smem_raw);
-    float* k_s = smem + L::kK;
-    float* v_s = smem + L::kV;
-    float* q_s = smem + L::kQ;
-    float* do_s = smem + L::kDo;
-    float* p_s = smem + L::kP;
-    float* ds_s = smem + L::kDs;
-    float* lse_s = smem + L::kLse;
-    float* dl_s = smem + L::kDelta;
+    T* smem = reinterpret_cast<T*>(smem_raw);
+    float* stats = reinterpret_cast<float*>(smem_raw + L::kStats);
 
     const int tid = threadIdx.x;
-    const int tx = tid & 15;
-    const int ty = tid >> 4;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
     const int bh = blockIdx.y;
     const int b = bh / p.heads;
     const int h = bh % p.heads;
     const int k0 = blockIdx.x * BK;
+    const int col0 = blockIdx.z * DO;
 
     const T* k_g = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh
         + static_cast<long long>(k0) * p.k_st;
@@ -425,84 +431,90 @@ flash_bwd_dkv_kernel(const BwdParams p) {
     const float* lse_g = p.lse + static_cast<long long>(bh) * p.t;
     const float* dl_g = p.delta + static_cast<long long>(bh) * p.t;
 
-    load_tile<T, D, BK, S>(v_s, v_g, p.v_st, tid);
-    load_tile_scaled<T, D, BK, S>(k_s, k_g, p.k_st, tid, p.logit_scale);
+    // Q, dO, lse and delta of query tile `tile` into ring stage `stage`.
+    auto copy_stage = [&](int tile, int stage) {
+        const long long q0 = static_cast<long long>(tile) * BQ;
+        flash_mma::copy_tile<T, BQ, D, S, NT>(
+            smem + L::kQ + stage * BQ * S, q_g + q0 * p.q_st, p.q_st, tid);
+        flash_mma::copy_tile<T, BQ, D, S, NT>(
+            smem + L::kDo + stage * BQ * S, do_g + q0 * p.do_st, p.do_st, tid);
+        for (int idx = tid; idx < 2 * kStatVecs; idx += NT) {
+            const int which = idx / kStatVecs;  // 0 lse, 1 delta
+            const int i4 = (idx % kStatVecs) * 4;
+            flash_mma::cp_async_16(stats + (2 * stage + which) * BQ + i4,
+                                   (which ? dl_g : lse_g) + q0 + i4);
+        }
+        flash_mma::cp_async_commit();
+    };
 
-    float dk[RK][NV][VW], dv[RK][NV][VW];
-#pragma unroll
-    for (int i = 0; i < RK; ++i)
-#pragma unroll
-        for (int j = 0; j < NV; ++j)
-#pragma unroll
-            for (int c = 0; c < VW; ++c) { dk[i][j][c] = 0.0f; dv[i][j][c] = 0.0f; }
+    flash_mma::copy_tile<T, BK, D, S, NT>(smem + L::kK, k_g, p.k_st, tid);
+    flash_mma::copy_tile<T, BK, D, S, NT>(smem + L::kV, v_g, p.v_st, tid);
+    copy_stage(0, 0);  // one group with K and V
 
+    float dk[OT][4], dv[OT][4];
+#pragma unroll
+    for (int i = 0; i < OT; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) { dk[i][c] = 0.0f; dv[i][c] = 0.0f; }
+
+    const T* k_w = smem + L::kK + 16 * warp * S;
+    const T* v_w = smem + L::kV + 16 * warp * S;
+    const int t2 = 2 * (lane & 3);  // this thread's first column of a tile
     const int n_tiles = p.t / BQ;
     for (int tile = 0; tile < n_tiles; ++tile) {
-        __syncthreads();  // everyone is done with Q, dO, P and dS of the last tile
-        const long long q0 = static_cast<long long>(tile) * BQ;
-        load_tile<T, D, BQ, S>(q_s, q_g + q0 * p.q_st, p.q_st, tid);
-        load_tile<T, D, BQ, S>(do_s, do_g + q0 * p.do_st, p.do_st, tid);
-        for (int r = tid; r < BQ; r += kThreads) {
-            lse_s[r] = lse_g[q0 + r] * kLog2e;
-            dl_s[r] = dl_g[q0 + r];
+        const int stage = tile & 1;
+        if (tile + 1 < n_tiles) {
+            copy_stage(tile + 1, stage ^ 1);
+            flash_mma::cp_async_wait<1>();  // tile `tile` (and K, V) landed
+        } else {
+            flash_mma::cp_async_wait<0>();
         }
-        cp_async_wait_all();
         __syncthreads();
+        const T* q_s = smem + L::kQ + stage * BQ * S;
+        const T* do_s = smem + L::kDo + stage * BQ * S;
+        const float* lse_s = stats + 2 * stage * BQ;
+        const float* dl_s = lse_s + BQ;
 
-        // S^T = K Q^T (log2 units) and dP^T = V dO^T: rows keys, columns queries
-        float s[RK][CQ], dp[RK][CQ];
-        dual_dot<D, RK, CQ, S>(k_s, v_s, q_s, do_s, ty, tx, s, dp);
+        // S^T = K Q^T and dP^T = V dO^T: rows keys, columns queries
+        float s[QT][4], dp[QT][4];
 #pragma unroll
-        for (int i = 0; i < RK; ++i)
+        for (int j = 0; j < QT; ++j)
 #pragma unroll
-            for (int j = 0; j < CQ; ++j) {
-                const int col = tx + 16 * j;
-                const float pv = exp2f(s[i][j] - lse_s[col]);
-                p_s[(ty + 16 * i) * PS + col] = pv;
-                ds_s[(ty + 16 * i) * PS + col] = pv * (dp[i][j] - dl_s[col]);
-            }
-        __syncthreads();
+            for (int c = 0; c < 4; ++c) { s[j][c] = 0.0f; dp[j][c] = 0.0f; }
+        W::template gemm_nt<QT, D, S>(s, k_w, q_s, lane);
+        W::template gemm_nt<QT, D, S>(dp, v_w, do_s, lane);
 
-        // dV += P^T dO and dK += dS^T Q, reducing over the tile's queries
-#pragma unroll 2
-        for (int kk = 0; kk < BQ; kk += 4) {
-            float pr[RK][4], dr[RK][4];
+        // P^T = exp2(s^2 log2(e) S^T - lse log2(e)), dS^T = P^T (dP^T - delta)
 #pragma unroll
-            for (int i = 0; i < RK; ++i) {
-                const float4 x = *reinterpret_cast<const float4*>(
-                    p_s + (ty + 16 * i) * PS + kk);
-                pr[i][0] = x.x; pr[i][1] = x.y; pr[i][2] = x.z; pr[i][3] = x.w;
-                const float4 y = *reinterpret_cast<const float4*>(
-                    ds_s + (ty + 16 * i) * PS + kk);
-                dr[i][0] = y.x; dr[i][1] = y.y; dr[i][2] = y.z; dr[i][3] = y.w;
-            }
+        for (int j = 0; j < QT; ++j) {
+            const float2 lse = *reinterpret_cast<const float2*>(
+                lse_s + 8 * j + t2);
+            const float2 dlt = *reinterpret_cast<const float2*>(
+                dl_s + 8 * j + t2);
 #pragma unroll
-            for (int j = 0; j < NV; ++j) {
-                float ov[4][VW], qv[4][VW];
-#pragma unroll
-                for (int r = 0; r < 4; ++r) {
-                    read_vec<VW>(do_s + (kk + r) * S + (16 * j + tx) * VW, ov[r]);
-                    read_vec<VW>(q_s + (kk + r) * S + (16 * j + tx) * VW, qv[r]);
-                }
-#pragma unroll
-                for (int i = 0; i < RK; ++i)
-#pragma unroll
-                    for (int r = 0; r < 4; ++r)
-#pragma unroll
-                        for (int c = 0; c < VW; ++c) {
-                            dv[i][j][c] = fmaf(pr[i][r], ov[r][c], dv[i][j][c]);
-                            dk[i][j][c] = fmaf(dr[i][r], qv[r][c], dk[i][j][c]);
-                        }
+            for (int c = 0; c < 4; ++c) {
+                const float l2 = ((c & 1) ? lse.y : lse.x) * kLog2e;
+                const float pv = exp2f(s[j][c] * p.logit_scale - l2);
+                s[j][c] = pv;
+                dp[j][c] = pv * (dp[j][c] - ((c & 1) ? dlt.y : dlt.x));
             }
         }
+
+        // dV += P^T dO and dK += dS^T Q over this tile's queries
+        W::template gemm_pn<QT, OT, S>(dv, s, do_s + col0, lane);
+        W::template gemm_pn<QT, OT, S>(dk, dp, q_s + col0, lane);
+        __syncthreads();  // everyone is done with this stage before the
+                          // copy of tile + 2 is issued into it
     }
 
+    const long long row0 = k0 + 16 * warp;
     T* dk_g = static_cast<T*>(p.dk) + b * p.dk_sb + h * p.dk_sh
-        + static_cast<long long>(k0) * p.dk_st;
+        + row0 * p.dk_st + col0;
     T* dv_g = static_cast<T*>(p.dv) + b * p.dv_sb + h * p.dv_sh
-        + static_cast<long long>(k0) * p.dv_st;
-    store_rows<T, RK, NV, VW>(dk_g, p.dk_st, ty, tx, p.grad_scale, dk);
-    store_rows<T, RK, NV, VW>(dv_g, p.dv_st, ty, tx, 1.0f, dv);
+        + row0 * p.dv_st + col0;
+    flash_mma::store_rows<T, OT>(dk_g, p.dk_st, dk, p.grad_scale,
+                                 p.grad_scale, lane);
+    flash_mma::store_rows<T, OT>(dv_g, p.dv_st, dv, 1.0f, 1.0f, lane);
 }
 
 template <typename T, int D, int BQ, int BK>
@@ -517,32 +529,51 @@ cudaError_t launch_dq(const BwdParams& p, int batch, cudaStream_t stream) {
     return cudaGetLastError();
 }
 
-template <typename T, int D, int BK, int BQ>
+template <typename T, int D, int DO, int BK, int BQ>
 cudaError_t launch_dkv(const BwdParams& p, int batch, cudaStream_t stream) {
-    constexpr int kBytes = DkvLayout<D, BK, BQ>::kBytes;
+    constexpr int kBytes = DkvLayout<T, D, BK, BQ>::kBytes;
     cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dkv_kernel<T, D, BK, BQ>,
+        flash_bwd_dkv_kernel<T, D, DO, BK, BQ>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
     if (err != cudaSuccess) return err;
-    const dim3 grid(p.t / BK, batch * p.heads);
-    flash_bwd_dkv_kernel<T, D, BK, BQ><<<grid, kThreads, kBytes, stream>>>(p);
+    const dim3 grid(p.t / BK, batch * p.heads, D / DO);
+    flash_bwd_dkv_kernel<T, D, DO, BK, BQ><<<grid, 2 * BK, kBytes, stream>>>(
+        p);
     return cudaGetLastError();
 }
 
-// Tiles per head dim: 64 x 64 everywhere except D = 256, where the D-wide
-// tiles would not fit in shared memory (dq: 64 x 32; dkv: 32 x 32).
+// dq tiles (BQ x BK): 64 x 64 except at D = 256 (64 x 32), where the D-wide
+// tiles would not fit in shared memory. dkv tiles (output columns DO, BK keys
+// x BQ queries), chosen so that ptxas spills nothing up to D = 128 (a thread
+// holds dK and dV, D/2 registers each, S^T and dP^T, BQ/2 each, and the
+// products' fragments): 128 keys (8 warps) and 32-query tiles up to D = 64;
+// at D = 128 16-query tiles for float32, and two column halves of 64 with
+// 32-query tiles for bfloat16 (whose fragments take more registers); at
+// D = 256 two column halves of 128, 64 keys and 16-query tiles (the float32
+// K, V and the Q/dO ring take 200 KB).
 template <typename T>
 cudaError_t launch_for_d(const BwdParams& p, int batch, int d, bool dkv,
                          cudaStream_t stream) {
+    constexpr bool kBf16 = sizeof(T) == 2;
+    if (dkv) {
+        switch (d) {
+            case 32: return launch_dkv<T, 32, 32, 128, 64>(p, batch, stream);
+            case 64: return launch_dkv<T, 64, 64, 128, 32>(p, batch, stream);
+            case 128:
+                if constexpr (kBf16)
+                    return launch_dkv<T, 128, 64, 128, 32>(p, batch, stream);
+                else
+                    return launch_dkv<T, 128, 128, 128, 16>(p, batch, stream);
+            case 256:
+                return launch_dkv<T, 256, 128, 64, 16>(p, batch, stream);
+            default: return cudaErrorInvalidValue;
+        }
+    }
     switch (d) {
-        case 32: return dkv ? launch_dkv<T, 32, 64, 64>(p, batch, stream)
-                            : launch_dq<T, 32, 64, 64>(p, batch, stream);
-        case 64: return dkv ? launch_dkv<T, 64, 64, 64>(p, batch, stream)
-                            : launch_dq<T, 64, 64, 64>(p, batch, stream);
-        case 128: return dkv ? launch_dkv<T, 128, 64, 64>(p, batch, stream)
-                             : launch_dq<T, 128, 64, 64>(p, batch, stream);
-        case 256: return dkv ? launch_dkv<T, 256, 32, 32>(p, batch, stream)
-                             : launch_dq<T, 256, 64, 32>(p, batch, stream);
+        case 32: return launch_dq<T, 32, 64, 64>(p, batch, stream);
+        case 64: return launch_dq<T, 64, 64, 64>(p, batch, stream);
+        case 128: return launch_dq<T, 128, 64, 64>(p, batch, stream);
+        case 256: return launch_dq<T, 256, 64, 32>(p, batch, stream);
         default: return cudaErrorInvalidValue;
     }
 }

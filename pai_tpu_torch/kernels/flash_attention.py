@@ -25,13 +25,16 @@ needs.
   kernels are held against. A full 16,384 x 16,384 logits tensor would be
   1 GB per head, hence blockwise.
 
-Bound on an H100 (67 TFLOP/s float32 on the CUDA cores, 3.35 TB/s HBM3):
-operations — ``4*B*H*T*T*D`` forward, ``6*...`` for dq and ``8*...`` for dk
-and dv, against some ``4-8*B*H*T*D`` elements moved. The kernels' designs are
-described at the top of their ``.cu`` sources; measured times are in PERF.md.
+Bound on an H100: operations — ``4*B*H*T*T*D`` forward, ``6*...`` for dq and
+``8*...`` for dk and dv, against some ``4-8*B*H*T*D`` elements moved. The
+forward and dkv kernels run on the tensor cores: bf16 ``mma`` for bfloat16
+operands (989 TFLOP/s dense), 3xTF32 for float32 ones (float32 accuracy at up
+to a third of the 495 TFLOP/s TF32 rate); dq runs float32 FMAs on the CUDA
+cores (67 TFLOP/s). The kernels' designs are described at the top of their
+``.cu`` sources; measured times are in PERF.md.
 
 The wrappers take strided views (last dimension contiguous, the other strides
-multiples of 4 elements): the q, k, v slices of one packed
+multiples of 16 bytes): the q, k, v slices of one packed
 ``(N, T, heads, 3, D)`` tensor are read in place. Their outputs are
 token-major in memory — a ``(B, H, T, D)`` view of a contiguous
 ``(B, T, H, D)`` buffer — so ``out.permute(0, 2, 1, 3).reshape(B, T, H * D)``
@@ -248,13 +251,22 @@ def _token_major(b: int, h: int, t: int, d: int, like: torch.Tensor
                        ).permute(0, 2, 1, 3)
 
 
+def _takes_layout(x: torch.Tensor) -> bool:
+    """Contiguous along D, the other strides whole 16-byte copies (4 float32
+    or 8 bfloat16 elements), 16-byte aligned: what the kernels' cp.async
+    tile copies need."""
+    vec = 16 // x.element_size()
+    return x.stride(3) == 1 and not any(s % vec for s in x.stride()[:3]) \
+        and x.data_ptr() % 16 == 0
+
+
 def _check_strides(name: str, x: torch.Tensor) -> None:
-    if x.stride(3) != 1 or any(s % 4 for s in x.stride()[:3]) \
-            or x.data_ptr() % 16:
+    if not _takes_layout(x):
         raise ValueError(
             f"flash_attention: {name} must be contiguous along D, with "
             "batch, head and row strides that are multiples of 4 elements "
-            f"and 16-byte aligned storage; got strides {x.stride()}")
+            "(float32) or 8 (bfloat16) and 16-byte aligned storage; got "
+            f"strides {x.stride()}")
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -380,8 +392,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         q, k, v, out, lse = ctx.saved_tensors
-        if grad.stride(3) != 1 or any(s % 4 for s in grad.stride()[:3]) \
-                or grad.data_ptr() % 16:  # a layout the kernels take
+        if not _takes_layout(grad):
             grad = grad.contiguous()
         return flash_attention_backward(q, k, v, out, lse, grad)
 

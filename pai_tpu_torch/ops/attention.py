@@ -28,14 +28,20 @@ FLASH_MULTIPLE = 1024
 
 def _full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                     ) -> torch.Tensor:
-    """Full-softmax attention. q, k, v: (B, H, T, D); float32 logits and
-    softmax, the result in v's dtype."""
-    scale = q.shape[-1] ** -0.25
+    """Full-softmax attention. q, k, v: (B, H, T, D). As the JAX function:
+    q and k are scaled in their own dtype (by the scale rounded to it, as
+    JAX's weakly typed scalar is), their product accumulates in float32, the
+    softmax is float32, the weights are rounded to v's dtype, and the second
+    product accumulates in float32 and is rounded once to v's dtype. The
+    products of 16-bit values are exact in float32 (and in TF32), so they run
+    as float32 matrix products."""
+    # the scale as a value of q's dtype, made on the host (no device copy)
+    scale = torch.tensor(q.shape[-1] ** -0.25, dtype=q.dtype).item()
     with torch.autocast(device_type=q.device.type, enabled=False):
-        logits = torch.matmul(q.float() * scale,
-                              (k.float() * scale).transpose(-1, -2))
-        weights = torch.softmax(logits, dim=-1)
-        return torch.matmul(weights, v.float()).to(v.dtype)
+        logits = torch.matmul((q * scale).float(),
+                              (k * scale).float().transpose(-1, -2))
+        weights = torch.softmax(logits, dim=-1).to(v.dtype)
+        return torch.matmul(weights.float(), v.float()).to(v.dtype)
 
 
 def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor

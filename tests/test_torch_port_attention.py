@@ -83,14 +83,30 @@ def test_plain_version_and_full_attention_match_jax_full_attention():
 
 
 def test_bfloat16_operands_compute_in_float32_and_round_once():
-    q, k, v = (t.bfloat16() for t in _torch(_qkv((1, 1, 1024, 32), 3)))
+    """The plain flash version computes in float32 and rounds once; the full
+    softmax follows JAX's ``_full_attention`` on the same bf16 inputs (q, k
+    scaled in bf16, weights rounded to bf16 before the second product).
+    Tolerance: a float32 sum in another order can send a weight to the other
+    bf16 neighbour, which moves an output by about one bf16 unit of the
+    largest output (2^-8 of its magnitude); that happens to under 1 % of the
+    outputs, the rest are bit-equal. The float32-softmax rounding JAX does
+    not do differs in about half of them."""
+    from pai_tpu.ops.attention import _full_attention
+
+    arrays = _qkv((1, 1, 1024, 32), 3)
+    q, k, v = (t.bfloat16() for t in _torch(arrays))
     want = fa.flash_attention_plain(q.float(), k.float(), v.float())
     got = fa.flash_attention_plain(q, k, v)
     assert got.dtype == torch.bfloat16
     assert torch.equal(got, want.bfloat16())
     full = port_attention._full_attention(q, k, v)
     assert full.dtype == torch.bfloat16
-    assert float((full.float() - want).abs().max()) < 2.0 ** -8
+    want_jax = np.asarray(_full_attention(
+        *(jnp.asarray(a, dtype=jnp.bfloat16) for a in arrays)
+    ).astype(jnp.float32))
+    diff = np.abs(full.float().numpy() - want_jax)
+    assert diff.max() <= 2.0 ** -8 * np.abs(want_jax).max()
+    assert (diff > 0).mean() < 0.01
 
 
 # T = 1024 and 3072 (below the threshold), 4096 + 512 (not a multiple of

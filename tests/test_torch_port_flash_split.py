@@ -1,0 +1,217 @@
+"""The arithmetic of the tensor-core flash kernels (``kernels/csrc/
+flash_mma.cuh``), emulated in PyTorch on the CPU and held against float64.
+
+* float32 operands run 3xTF32: x = hi + lo with hi = x rounded to TF32 (10
+  mantissa bits, to nearest even, as ``cvt.rn.tf32.f32`` rounds; done here
+  by bit masking) and lo = x - hi, which the tensor core truncates to TF32;
+  a product is lo*hi + hi*lo + hi*hi, float32 sums.
+* bfloat16 operands: their products are exact in float32; the float32
+  probabilities P (and dS^T) enter their products as two bf16 terms,
+  hi = bf16(p), lo = bf16(p - hi).
+
+Checks: (a) the emulated 3xTF32 forward (o, lse) and dkv (dk, dv) are within
+twice the plain float32 version's error against float64; (b) the emulated
+bf16 kernels' outputs equal the plain version's bf16 outputs to within one
+bf16 unit in the last place; (c) both hold where q and k are four times
+larger and the softmax is nearly one-hot. A single bf16 term for P (and P^T,
+dS^T) fails (b), and a single TF32 term fails (a) by far: both are checked,
+so the tests can tell. Shapes (1,2,256,64) and (1,1,256,32); no card.
+
+The float32 sums here round to nearest. The tensor cores add into their
+accumulators with truncation, which the kernels counter with partial sums of
+32 keys; that is held on the card by ``chip_smoke.py``, not here.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import torch_port_util  # noqa: F401  (one intra-op thread)
+from pai_tpu_torch.kernels import flash_attention as fa
+
+LOG2E = 1.4426950408889634
+BLOCK_K = 64  # the forward kernel's K/V tile at D = 32 and 64
+
+
+def tf32_round(x):
+    """x rounded to TF32 as cvt.rn.tf32.f32 rounds a finite float32: to
+    nearest, ties to the even neighbour."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x0FFF + ((bits >> 13) & 1)) & -0x2000).view(
+        torch.float32)
+
+
+def tf32_truncate(x):
+    """What the tensor core reads of a float32 passed as TF32."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x):
+    hi = tf32_round(x)
+    return hi, tf32_truncate(x - hi)
+
+
+def mm_3xtf32(a, b):
+    """a @ b as the kernels' three TF32 terms, small ones first."""
+    a_hi, a_lo = split_tf32(a)
+    b_hi, b_lo = split_tf32(b)
+    return (torch.matmul(a_lo, b_hi) + torch.matmul(a_hi, b_lo)) \
+        + torch.matmul(a_hi, b_hi)
+
+
+def split_bf16(p):
+    hi = p.bfloat16().float()
+    return hi, (p - hi).bfloat16().float()
+
+
+def mm_split_p(p, b):
+    """P @ b for float32 P and bf16-exact b: two bf16 terms of P."""
+    hi, lo = split_bf16(p)
+    return torch.matmul(lo, b) + torch.matmul(hi, b)
+
+
+def mm_single_p(p, b):
+    return torch.matmul(p.bfloat16().float(), b)
+
+
+def emulate_forward(q, k, v, mm_qk, mm_pv):
+    """The forward kernel's loop: S per K/V tile in log2 units, online
+    softmax from m = -inf, O += P V; returns (o float32, lse)."""
+    b, h, t, d = q.shape
+    scale = LOG2E / d ** 0.5
+    m = torch.full((b, h, t, 1), float("-inf"))
+    l = torch.zeros((b, h, t, 1))
+    acc = torch.zeros((b, h, t, d))
+    for k0 in range(0, t, BLOCK_K):
+        s = mm_qk(q, k[:, :, k0:k0 + BLOCK_K].transpose(-1, -2)) * scale
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + mm_pv(p, v[:, :, k0:k0 + BLOCK_K])
+        m = m_new
+    lse = (m + torch.log2(l)) / LOG2E
+    return acc / l, lse.reshape(b * h, t)
+
+
+def emulate_dkv(q, k, v, do, lse, delta, mm_kq, mm_pd):
+    """The dkv kernel: S^T = K Q^T, dP^T = V dO^T, P^T, dS^T, then
+    dV = P^T dO and dK = s^2 dS^T Q."""
+    b, h, t, d = q.shape
+    st = mm_kq(k, q.transpose(-1, -2))
+    dpt = mm_kq(v, do.transpose(-1, -2))
+    lse2 = lse.reshape(b, h, 1, t) * LOG2E
+    pt = torch.exp2(st * (LOG2E / d ** 0.5) - lse2)
+    dst = pt * (dpt - delta.reshape(b, h, 1, t))
+    return mm_pd(dst, q) * d ** -0.5, mm_pd(pt, do)
+
+
+def reference64(q, k, v, do):
+    """(o, lse, dk, dv) in float64 by the definitions."""
+    q, k, v, do = (x.double() for x in (q, k, v, do))
+    b, h, t, d = q.shape
+    logits = torch.matmul(q, k.transpose(-1, -2)) * d ** -0.5
+    lse = torch.logsumexp(logits, -1, keepdim=True)
+    p = torch.exp(logits - lse)
+    o = torch.matmul(p, v)
+    delta = (do * o).sum(-1, keepdim=True)
+    ds = p * (torch.matmul(do, v.transpose(-1, -2)) - delta)
+    dk = torch.matmul(ds.transpose(-1, -2), q) * d ** -0.5
+    dv = torch.matmul(p.transpose(-1, -2), do)
+    return o, lse.reshape(b * h, t), dk, dv
+
+
+def inputs(shape, seed, peak):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.normal(0.0, 1.0, shape).astype(
+        np.float32)) for _ in range(4))
+    return q * peak, k * peak, v, do
+
+
+def max_err(x, ref):
+    return float((x.double() - ref).abs().max())
+
+
+CASES = [((1, 2, 256, 64), 0, 1.0), ((1, 1, 256, 32), 1, 1.0),
+         ((1, 2, 256, 64), 2, 4.0), ((1, 1, 256, 32), 3, 4.0)]
+
+
+@pytest.mark.parametrize("shape,seed,peak", CASES)
+def test_3xtf32_within_twice_the_float32_error(shape, seed, peak):
+    q, k, v, do = inputs(shape, seed, peak)
+    o64, lse64, dk64, dv64 = reference64(q, k, v, do)
+    o, lse = emulate_forward(q, k, v, mm_3xtf32, mm_3xtf32)
+    plain_o, plain_lse = fa.flash_attention_plain(q, k, v, emit_lse=True)
+    for got, plain, ref in ((o, plain_o, o64), (lse, plain_lse, lse64)):
+        assert max_err(got, ref) <= 2.0 * max_err(plain, ref)
+    # dkv from the plain forward's o and lse, as the kernel is called
+    delta = fa._delta(plain_o, do)
+    dk, dv = emulate_dkv(q, k, v, do, plain_lse, delta, mm_3xtf32, mm_3xtf32)
+    _, plain_dk, plain_dv = fa.flash_attention_backward_plain(
+        q, k, v, plain_o, plain_lse, do)
+    for got, plain, ref in ((dk, plain_dk, dk64), (dv, plain_dv, dv64)):
+        assert max_err(got, ref) <= 2.0 * max_err(plain, ref)
+    # TF32 alone (one term) is far outside: the split is what keeps float32
+    one = emulate_forward(q, k, v, lambda a, b: torch.matmul(
+        tf32_round(a), tf32_round(b)), lambda a, b: torch.matmul(
+        tf32_round(a), tf32_round(b)))[0]
+    assert max_err(one, o64) > 8.0 * max_err(plain_o, o64)
+
+
+def within_one_ulp(got, want):
+    """|got - want| <= one bf16 unit in the last place of the larger, for
+    every element; elements under 2^-8 of the largest output are held to the
+    unit at that magnitude (2^-15 of the largest): there both sides are
+    float32 sums whose last bits already differ by more than the element."""
+    floor = 2.0 ** -8 * float(want.float().abs().max())
+    mag = torch.maximum(got.float().abs(), want.float().abs()).clamp_min(floor)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return bool(((got.float() - want.float()).abs() <= ulp).all())
+
+
+@pytest.mark.parametrize("shape,seed,peak", CASES)
+def test_bf16_split_p_within_one_ulp_of_the_plain_version(shape, seed, peak):
+    q, k, v, do = (x.bfloat16() for x in inputs(shape, seed, peak))
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    plain_o, plain_lse = fa.flash_attention_plain(q, k, v, emit_lse=True)
+    o, lse = emulate_forward(qf, kf, vf, torch.matmul, mm_split_p)
+    assert within_one_ulp(o.bfloat16(), plain_o)
+    np.testing.assert_allclose(lse.numpy(), plain_lse.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    _, plain_dk, plain_dv = fa.flash_attention_backward_plain(
+        q, k, v, plain_o, plain_lse, do)
+    delta = fa._delta(plain_o, do)
+    dk, dv = emulate_dkv(qf, kf, vf, dof, plain_lse, delta, torch.matmul,
+                         mm_split_p)
+    assert within_one_ulp(dk.bfloat16(), plain_dk)
+    assert within_one_ulp(dv.bfloat16(), plain_dv)
+    # a single bf16 term for P, P^T and dS^T would not hold it
+    o1 = emulate_forward(qf, kf, vf, torch.matmul, mm_single_p)[0]
+    assert not within_one_ulp(o1.bfloat16(), plain_o)
+    dk1, dv1 = emulate_dkv(qf, kf, vf, dof, plain_lse, delta, torch.matmul,
+                           mm_single_p)
+    assert not within_one_ulp(dk1.bfloat16(), plain_dk)
+    assert not within_one_ulp(dv1.bfloat16(), plain_dv)
+
+
+def test_tf32_rounding_is_round_to_nearest_even():
+    """The bit-masking rounding against a direct definition: 10 mantissa bits
+    kept, halfway cases to the even neighbour (either way, either sign),
+    carries into the exponent."""
+    ulp = 2.0 ** -10
+    x = torch.tensor([1.0 + ulp / 2, -(1.0 + ulp / 2), 1.0 + 1.5 * ulp,
+                      -(1.0 + 1.5 * ulp), 1.0 + ulp / 2 + 2 ** -20,
+                      1.0 + ulp / 2 - 2 ** -20, 2.0 - ulp / 2, 3.0, 0.0],
+                     dtype=torch.float32)
+    want = torch.tensor([1.0, -1.0, 1.0 + 2 * ulp, -(1.0 + 2 * ulp),
+                         1.0 + ulp, 1.0, 2.0, 3.0, 0.0], dtype=torch.float32)
+    assert torch.equal(tf32_round(x), want)
+    # hi and lo are TF32 values; what the split loses is lo's truncation,
+    # under one TF32 unit of lo: below 2^-21 of x
+    x = torch.from_numpy(np.random.default_rng(9).normal(size=4096).astype(
+        np.float32))
+    hi, lo = split_tf32(x)
+    assert torch.equal(tf32_truncate(hi), hi)
+    assert torch.equal(tf32_truncate(lo), lo)
+    rel = (hi.double() + lo.double() - x.double()).abs() / x.double().abs()
+    assert 0.0 < float(rel.max()) < 2.0 ** -21
