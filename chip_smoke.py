@@ -18,8 +18,8 @@ for). Phases, each printing one JSON line:
    switches as set, seconds spent building the kernels.
    ``build`` — per flash kernel instantiation, ptxas's registers and spills
    (``-Xptxas -v``) and, where the toolkit has ``cuobjdump``, the count of
-   HMMA (tensor-core) instructions in its SASS: the forward and dkv kernels
-   must have some, and no spills up to D = 128.
+   HMMA (tensor-core) instructions in its SASS: every flash kernel (forward,
+   dq, dkv) must have some, and no spills up to D = 128.
 2. ``kernels`` — each kernel's wrapper against its plain version on CUDA
    tensors at the shapes the report path gives it and at ragged and
    multi-channel shapes; times by CUDA events (warmed, median of 25 samples
@@ -28,9 +28,9 @@ for). Phases, each printing one JSON line:
    paths launch, every head dim in float32 and bfloat16, a peaked case of
    each type (q and k four times larger: a nearly one-hot softmax), strided
    views of a packed qkv tensor, the log-sum-exp output, and the inputs that
-   must raise; per case the arithmetic route (``mma-bf16``, ``mma-3xtf32``,
-   or ``fma-f32`` for dq) and the bound at its rate, for float32 also at the
-   CUDA cores' rate; beside the kernel's time the plain version's and that
+   must raise; per case the arithmetic route (``mma-bf16`` or
+   ``mma-3xtf32``) and the bound at its rate, for float32 also at the CUDA
+   cores' rate; beside the kernel's time the plain version's and that
    of PyTorch's own fused attention call on the same tensors (timed here,
    used nowhere in the port).
 3. ``report``  — a 32-pair 256x256 synthetic dataset written with the port's
@@ -53,7 +53,8 @@ for). Phases, each printing one JSON line:
 5. ``gradcheck`` — one training step of a small UNet, card against CPU.
 6. ``train`` — full-width Palette training through ``pai_tpu_torch.main``
    at ``--precision 32``: 4 steps, a validation, best and last slots; then
-   single steps at batch 4 (profiled) and 8.
+   single steps at batch 4 (profiled: device busy time and per-kernel time)
+   and 8.
 7. ``bf16`` — the same UNet under ``--precision bf16-mixed``: one forward at
    batch 2 and one training step at batch 4, timed, with the flash launches
    and the dtype of their operands (bfloat16), finite outputs and gradients.
@@ -89,7 +90,7 @@ F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
 # float32 products as three TF32 products on the tensor cores (3xTF32; 495
 # TFLOP/s dense TF32): the operations bound of float32 operands in the flash
-# forward and dkv kernels, which run them that way (dq: F32_FLOP_PER_S)
+# kernels (forward, dq, dkv), which run them that way
 TF32X3_FLOP_PER_S = 495e12 / 3
 # 5 maps x 11 taps x 2 passes x 2 (multiply-add) + 3 products + 17 for the
 # ratio, per output pixel
@@ -193,7 +194,8 @@ def device_kernel_us(fn, kernel_names, calls=20):
 
 # the flash kernels that run on the tensor cores, and the head dims at which
 # ptxas must report no spills for them
-MMA_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel")
+MMA_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+               "flash_bwd_dkv_kernel")
 NO_SPILL_HEAD_DIMS = (32, 64, 128)
 
 
@@ -452,7 +454,7 @@ def phase_kernels(device):
 
 
 def mma_route(dtype):
-    """How the flash forward and dkv kernels multiply operands of `dtype`."""
+    """How the flash kernels multiply operands of `dtype`."""
     return "mma-bf16" if dtype == torch.bfloat16 else "mma-3xtf32"
 
 
@@ -964,9 +966,13 @@ def make_palette_checkpoint(directory, device):
     return slot, parameter_count(model)
 
 
-def device_events_us(fn, calls=2):
-    """Device time per call of every device-side profiler event of ``fn``,
-    by name, from torch.profiler."""
+def device_profile(fn, calls=2):
+    """(events, busy_ms, span_ms) of ``fn`` from torch.profiler: the device
+    time per call of every device-side event, by name; the device's busy
+    time per call, the union of the intervals of its kernels, copies and
+    memsets in the trace (work that overlaps counts once; the spans the
+    profiler draws for annotated host regions, such as the optimizer's, not
+    at all); and the time per call from the first of them to the last."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -977,9 +983,23 @@ def device_events_us(fn, calls=2):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return {event.key: float(event.self_device_time_total) / calls
-            for event in prof.key_averages()
-            if event.device_type == DeviceType.CUDA}
+    events = {event.key: float(event.self_device_time_total) / calls
+              for event in prof.key_averages()
+              if event.device_type == DeviceType.CUDA}
+    with tempfile.TemporaryDirectory(prefix="pai_smoke_trace_") as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in trace
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, float("-inf")
+    for start, stop in spans:
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    span = end - spans[0][0] if spans else 0.0
+    return events, busy / 1e3 / calls, span / 1e3 / calls
 
 
 def phase_palette(device, workdir):
@@ -1120,7 +1140,7 @@ def phase_palette(device, workdir):
     gb = torch.full((xb.shape[0],), 0.5, device=device)
     with torch.inference_mode():
         forward_ms = time_ms(lambda: unet(xb, yb, gb), samples=3, calls=2)
-        events = device_events_us(lambda: unet(xb, yb, gb))
+        events = device_profile(lambda: unet(xb, yb, gb))[0]
         flash_us = sum(us for name, us in events.items()
                        if "flash_fwd_kernel" in name)
         top_events = sorted(events.items(), key=lambda kv: -kv[1])[:12]
@@ -1186,11 +1206,9 @@ def flash_bwd_bounds(shape, dtype):
     """{kernel: {"arith_route", "bound_ms", "bound_by"}} of the two backward
     kernels: operations (6 and 8 x B*H*T*T*D) over the peak rate of the
     operands' type, against the bytes each must move (q, k, v, dO, lse, delta
-    read once; dq, or dk and dv, written once) over the memory rate. dq runs
-    float32 FMAs on the CUDA cores ("fma-f32"; its bf16 bound is the bf16
-    rate, as before); dkv runs on the tensor cores (mma_route, at
-    tensor_core_rate), and for float32 operands its bound at the CUDA cores'
-    rate is given beside it."""
+    read once; dq, or dk and dv, written once) over the memory rate. Both
+    run on the tensor cores (mma_route, at tensor_core_rate); for float32
+    operands the bound at the CUDA cores' rate is given beside it."""
     b, h, t, d = shape
     size = 2 if dtype == torch.bfloat16 else 4
     out = {}
@@ -1198,16 +1216,11 @@ def flash_bwd_bounds(shape, dtype):
                                ("flash_bwd_dkv", 8, 2)):
         nbytes = (4 + outputs) * b * h * t * d * size + 2 * 4 * b * h * t
         flops = ops * b * h * t * t * d
-        if name == "flash_bwd_dq":
-            route = "fma-f32"
-            rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 \
-                else F32_FLOP_PER_S
-        else:
-            route, rate = mma_route(dtype), tensor_core_rate(dtype)
-        bound_ms, bound_by = larger_bound(nbytes, flops, rate)
-        out[name] = {"arith_route": route, "bound_ms": bound_ms,
+        bound_ms, bound_by = larger_bound(nbytes, flops,
+                                          tensor_core_rate(dtype))
+        out[name] = {"arith_route": mma_route(dtype), "bound_ms": bound_ms,
                      "bound_by": bound_by}
-        if name == "flash_bwd_dkv" and dtype == torch.float32:
+        if dtype == torch.float32:
             out[name]["bound_ms_cuda_cores"] = larger_bound(
                 nbytes, flops, F32_FLOP_PER_S)[0]
     return out
@@ -1623,7 +1636,8 @@ def phase_train(device, workdir):
 
     # where a step's device time goes (warm: Adam's state exists); the
     # profiler's device time per kernel over the CUDA-event time of a step
-    events = device_events_us(lambda: step(state, batch.x, batch.y), calls=1)
+    events, busy_ms, span_ms = device_profile(
+        lambda: step(state, batch.x, batch.y), calls=1)
     kernel_ms = {name: sum(us for key, us in events.items()
                            if name + "_kernel" in key) / 1e3
                  for name in TRAIN_LAUNCHES_PER_STEP}
@@ -1659,6 +1673,7 @@ def phase_train(device, workdir):
           "losses": [e["loss"] for e in steps],
           "same_seed_first_step_loss": again_loss,
           "profiled_step_ms": step_ms,
+          "step_device_ms": busy_ms, "step_device_span_ms": span_ms,
           "kernel_device_ms_per_step": kernel_ms,
           "kernel_share_of_step": {k: v / step_ms
                                    for k, v in kernel_ms.items()},
@@ -1720,12 +1735,11 @@ def phase_bf16(device, workdir):
             # as many samples as the float32 forward of phase_palette
             forward_ms = time_ms(lambda: model(xs, ys, gamma), samples=10,
                                  calls=3)
-            events = device_events_us(lambda: model(xs, ys, gamma))
+            events, forward_device_ms, _ = device_profile(
+                lambda: model(xs, ys, gamma))
         forward_dtypes = flash_operand_types(events)
         forward_flash_ms = sum(us for name, us in events.items()
                                if "flash_fwd_kernel" in name) / 1e3
-        # the device's busy time of one forward, every kernel summed
-        forward_device_ms = sum(events.values()) / 1e3
         check(out.shape == (PALETTE_BATCH, SIZE, SIZE, 1)
               and out.dtype == torch.float32
               and bool(torch.isfinite(out).all()) and float(out.std()) > 0,
@@ -1761,9 +1775,9 @@ def phase_bf16(device, workdir):
         check(np.isfinite(loss) and grads_finite and attention_grad > 0,
               f"bf16 step: loss {loss}, gradients finite {grads_finite}, "
               f"attention qkv gradient mass {attention_grad}")
-        events = device_events_us(lambda: step(state, x, y), calls=1)
+        events, step_device_ms, step_span_ms = device_profile(
+            lambda: step(state, x, y), calls=1)
         step_dtypes = flash_operand_types(events)
-        step_device_ms = sum(events.values()) / 1e3
         check(step_dtypes == ["__nv_bfloat16"],
               f"flash kernels in the bf16 step: {step_dtypes}")
         kernel_ms = {name: sum(us for key, us in events.items()
@@ -1784,6 +1798,7 @@ def phase_bf16(device, workdir):
           "forward_output_max_abs": float(out.abs().max()),
           "step_ms_batch_4": step_ms, "step_enqueue_ms": enqueue_ms,
           "step_device_ms": step_device_ms,
+          "step_device_span_ms": step_span_ms,
           "step_loss": loss, "step_launches": step_launches,
           "attention_qkv_grad_abs_sum": attention_grad,
           "step_flash_dtypes": step_dtypes,

@@ -1,4 +1,4 @@
-// Flash-attention backward for Hopper (sm_90a).
+// Flash-attention backward for Hopper (sm_90a) on the tensor cores.
 //
 // Replaces the two TPU kernels of pai_tpu/kernels/flash_attention.py's
 // _flash_backward: _bwd_dq_kernel (pallas_call at :290) and _bwd_dkv_kernel
@@ -17,29 +17,24 @@
 //
 // What bounds them on an H100: operations. dq does three products of
 // 2*T^2*D per head (6*B*H*T^2*D), dkv four (8*B*H*T^2*D), against some
-// 8*B*H*T*D elements moved.
+// 8*B*H*T*D elements moved. So every product of both kernels runs as
+// warp-level mma.sync on the tensor cores (flash_mma.cuh): bf16 m16n8k16 for
+// bfloat16 operands (P and dS, float32 values, as two bf16 terms), 3xTF32
+// m16n8k8 for float32 ones (float32 accuracy, never TF32 alone).
 //
 // * Each output tile has exactly one writer, as on the TPU: dq's block owns
-//   one (batch*head, 64-row query tile) and loops over the K/V tiles; dkv's
-//   block owns one (batch*head, key tile) and loops over the query tiles.
-//   No atomics, so the result is bit-reproducible, and lse and delta are
-//   inputs, never recomputed inside: a caller may pass a global lse that
-//   spans more keys than the ones it hands over (ring attention's hops).
-// * dkv runs on the tensor cores (flash_mma.cuh; its design is described
-//   above the kernel below), in the transposed frame S^T = K Q^T.
-// * dq still runs float32 FMAs on the CUDA cores (bfloat16 operands are
-//   converted as they are loaded; the 67 TFLOP/s of the CUDA cores bound
-//   it). 256 threads as a 16 x 16 grid; thread (ty, tx) owns rows ty + 16 i
-//   and columns tx + 16 j of every T x T tile, and rows ty + 16 i, columns
-//   (16 j + tx) * VW + c of its D-wide accumulator, which stays in registers
-//   from the first tile to the last. S and dP of a tile run in one loop over
-//   D (each 16-byte load of an operand row feeds two FMA chains); rows are
-//   padded (D + 4 floats; dS rows BK + 16) so that the 16-byte loads of a
-//   quarter-warp fall into distinct banks; Q is pre-multiplied by
-//   s^2 * log2(e), lse is taken to log2 units and the exponential is exp2f;
-//   float K/V tiles arrive by cp.async, one stage (ROADMAP.md Queue D).
+//   one (batch*head, query tile) and loops over the K/V tiles; dkv's block
+//   owns one (batch*head, key tile) and loops over the query tiles. No
+//   atomics and a fixed order of mma accumulation, so the result is
+//   bit-reproducible, and lse and delta are inputs, never recomputed inside:
+//   a caller may pass a global lse that spans more keys than the ones it
+//   hands over (ring attention's hops).
+// * The products that sum over the long axis (dQ over the keys, dK and dV
+//   over the queries) add partial sums of 32 in float32, because the tensor
+//   cores' own accumulation truncates (flash_mma.cuh, kPnKeys).
+// * Each kernel's design is described above it.
 //
-// Dynamic shared memory (up to 211,968 bytes), so each instantiation is given
+// Dynamic shared memory (up to 202,752 bytes), so each instantiation is given
 // cudaFuncAttributeMaxDynamicSharedMemorySize before its launch. Plain C
 // interface; each entry returns cudaGetLastError().
 
@@ -52,9 +47,7 @@
 namespace {
 
 using flash_mma::Warp;
-
-constexpr int kThreads = 256;
-constexpr float kLog2e = 1.44269504088896340736f;
+using flash_mma::kLog2e;
 
 struct BwdParams {
     const void* q;
@@ -79,211 +72,51 @@ struct BwdParams {
     float grad_scale;   // D^-1/2
 };
 
-template <typename T> struct Elem;
-
-template <> struct Elem<float> {
-    static constexpr bool kAsync = true;
-    __device__ static float4 load4(const float* p) {
-        return *reinterpret_cast<const float4*>(p);
-    }
-    __device__ static void store4(float* p, float4 x) {
-        *reinterpret_cast<float4*>(p) = x;
-    }
-    __device__ static void store2(float* p, float x, float y) {
-        *reinterpret_cast<float2*>(p) = make_float2(x, y);
-    }
-};
-
-template <> struct Elem<__nv_bfloat16> {
-    static constexpr bool kAsync = false;
-    __device__ static float4 load4(const __nv_bfloat16* p) {
-        const uint2 raw = *reinterpret_cast<const uint2*>(p);
-        const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-        const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-        const float2 a = __bfloat1622float2(lo);
-        const float2 b = __bfloat1622float2(hi);
-        return make_float4(a.x, a.y, b.x, b.y);
-    }
-    __device__ static void store4(__nv_bfloat16* p, float4 x) {
-        __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
-        __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
-        uint2 raw;
-        raw.x = *reinterpret_cast<unsigned int*>(&lo);
-        raw.y = *reinterpret_cast<unsigned int*>(&hi);
-        *reinterpret_cast<uint2*>(p) = raw;
-    }
-    __device__ static void store2(__nv_bfloat16* p, float x, float y) {
-        *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-    }
-};
-
-__device__ __forceinline__ void cp_async_16(float* smem_dst, const float* src) {
-    const unsigned int dst =
-        static_cast<unsigned int>(__cvta_generic_to_shared(smem_dst));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                 :: "r"(dst), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Copies ROWS x D elements (row stride `row_stride` elements) into shared
-// memory as floats (row stride SMEM_STRIDE floats), 4 elements per thread and
-// step, coalesced along D. Float operands go by cp.async (the caller waits).
-template <typename T, int D, int ROWS, int SMEM_STRIDE>
-__device__ __forceinline__ void load_tile(float* smem, const T* gmem,
-                                          long long row_stride, int tid) {
-    constexpr int kVecPerRow = D / 4;
-    constexpr int kVecs = ROWS * kVecPerRow;
-    static_assert(kVecs % kThreads == 0, "tile must divide over the block");
-#pragma unroll
-    for (int it = 0; it < kVecs / kThreads; ++it) {
-        const int idx = tid + it * kThreads;
-        const int r = idx / kVecPerRow;
-        const int c = (idx % kVecPerRow) * 4;
-        const T* src = gmem + r * row_stride + c;
-        float* dst = smem + r * SMEM_STRIDE + c;
-        if constexpr (Elem<T>::kAsync) {
-            cp_async_16(dst, src);
-        } else {
-            *reinterpret_cast<float4*>(dst) = Elem<T>::load4(src);
-        }
-    }
-}
-
-// The same copy, multiplied by `scale` on the way (synchronous).
-template <typename T, int D, int ROWS, int SMEM_STRIDE>
-__device__ __forceinline__ void load_tile_scaled(float* smem, const T* gmem,
-                                                 long long row_stride, int tid,
-                                                 float scale) {
-    constexpr int kVecPerRow = D / 4;
-    constexpr int kVecs = ROWS * kVecPerRow;
-    static_assert(kVecs % kThreads == 0, "tile must divide over the block");
-#pragma unroll
-    for (int it = 0; it < kVecs / kThreads; ++it) {
-        const int idx = tid + it * kThreads;
-        const int r = idx / kVecPerRow;
-        const int c = (idx % kVecPerRow) * 4;
-        float4 x = Elem<T>::load4(gmem + r * row_stride + c);
-        x.x *= scale; x.y *= scale; x.z *= scale; x.w *= scale;
-        *reinterpret_cast<float4*>(smem + r * SMEM_STRIDE + c) = x;
-    }
-}
-
-// Two products over D at once, rows ty + 16 i of (a, b) against rows
-// tx + 16 j of (c, e):  x[i][j] += a_i . c_j,  y[i][j] += b_i . e_j.
-template <int D, int RR, int CC, int S>
-__device__ __forceinline__ void dual_dot(const float* a, const float* b,
-                                         const float* c, const float* e,
-                                         int ty, int tx, float (&x)[RR][CC],
-                                         float (&y)[RR][CC]) {
-#pragma unroll
-    for (int i = 0; i < RR; ++i)
-#pragma unroll
-        for (int j = 0; j < CC; ++j) { x[i][j] = 0.0f; y[i][j] = 0.0f; }
-#pragma unroll 2
-    for (int d = 0; d < D; d += 4) {
-        float4 cf[CC], ef[CC];
-#pragma unroll
-        for (int j = 0; j < CC; ++j) {
-            cf[j] = *reinterpret_cast<const float4*>(c + (tx + 16 * j) * S + d);
-            ef[j] = *reinterpret_cast<const float4*>(e + (tx + 16 * j) * S + d);
-        }
-#pragma unroll
-        for (int i = 0; i < RR; ++i) {
-            const float4 af =
-                *reinterpret_cast<const float4*>(a + (ty + 16 * i) * S + d);
-            const float4 bf =
-                *reinterpret_cast<const float4*>(b + (ty + 16 * i) * S + d);
-#pragma unroll
-            for (int j = 0; j < CC; ++j) {
-                x[i][j] = fmaf(af.x, cf[j].x, x[i][j]);
-                x[i][j] = fmaf(af.y, cf[j].y, x[i][j]);
-                x[i][j] = fmaf(af.z, cf[j].z, x[i][j]);
-                x[i][j] = fmaf(af.w, cf[j].w, x[i][j]);
-                y[i][j] = fmaf(bf.x, ef[j].x, y[i][j]);
-                y[i][j] = fmaf(bf.y, ef[j].y, y[i][j]);
-                y[i][j] = fmaf(bf.z, ef[j].z, y[i][j]);
-                y[i][j] = fmaf(bf.w, ef[j].w, y[i][j]);
-            }
-        }
-    }
-}
-
-// Reads VW consecutive floats at p into out.
-template <int VW>
-__device__ __forceinline__ void read_vec(const float* p, float (&out)[VW]) {
-    if constexpr (VW == 4) {
-        const float4 x = *reinterpret_cast<const float4*>(p);
-        out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
-    } else {
-        const float2 x = *reinterpret_cast<const float2*>(p);
-        out[0] = x.x; out[1] = x.y;
-    }
-}
-
-// Writes the (RR x NV x VW) accumulator of rows ty + 16 i, times `scale`.
-template <typename T, int RR, int NV, int VW>
-__device__ __forceinline__ void store_rows(T* g, long long row_stride, int ty,
-                                           int tx, float scale,
-                                           const float (&acc)[RR][NV][VW]) {
-#pragma unroll
-    for (int i = 0; i < RR; ++i)
-#pragma unroll
-        for (int j = 0; j < NV; ++j) {
-            T* dst = g + (ty + 16 * i) * row_stride + (16 * j + tx) * VW;
-            if constexpr (VW == 4) {
-                Elem<T>::store4(dst, make_float4(
-                    acc[i][j][0] * scale, acc[i][j][1] * scale,
-                    acc[i][j][2] * scale, acc[i][j][3] * scale));
-            } else {
-                Elem<T>::store2(dst, acc[i][j][0] * scale,
-                                acc[i][j][1] * scale);
-            }
-        }
-}
-
 // ------------------------------------------------------------------- dQ
-template <int D, int BQ, int BK> struct DqLayout {
-    static constexpr int kStride = D + 4;
-    static constexpr int kDsStride = BK + 16;
+// The forward's shape (flash_attention.cu): one block owns BQ query rows of
+// one batch*head and loops over BK-key tiles; each of its BQ/16 warps owns 16
+// query rows. Per key tile, three products:
+//     S = Q K^T,  dP = dO V^T     (A: the warp's Q and dO rows in shared
+//                                  memory, copied once; B: the K, V tile)
+//     dQ += dS K                  (A: dS straight from the accumulator
+//                                  fragments, in registers; B: the K tile,
+//                                  its rows in gemm_pn's order)
+// P = exp2(s^2 log2(e) S - lse log2(e)) and dS = P (dP - delta) are formed in
+// the fragments: each thread holds lse and delta of its rows g and g + 8 in
+// registers for the whole loop, and its D/2 floats of dQ from the first tile
+// to the last. K and V arrive by cp.async in a ring of two stages: tile i + 1
+// is in flight while tile i is multiplied.
+template <typename T, int D, int BQ, int BK> struct DqLayout {
+    static constexpr int kStride = D + Warp<T>::kPad;  // elements per row
     static constexpr int kQ = 0;
     static constexpr int kDo = kQ + BQ * kStride;
-    static constexpr int kK = kDo + BQ * kStride;
-    static constexpr int kV = kK + BK * kStride;
-    static constexpr int kDs = kV + BK * kStride;
-    static constexpr int kFloats = kDs + BQ * kDsStride;
-    static constexpr int kBytes = kFloats * 4;
+    static constexpr int kK = kDo + BQ * kStride;       // 2 stages
+    static constexpr int kV = kK + 2 * BK * kStride;    // 2 stages
+    static constexpr int kElems = kV + 2 * BK * kStride;
+    static constexpr int kBytes = kElems * static_cast<int>(sizeof(T));
 };
 
 template <typename T, int D, int BQ, int BK>
-__global__ void __launch_bounds__(kThreads, (D <= 64 ? 2 : 1))
+__global__ void __launch_bounds__(2 * BQ, 1)
 flash_bwd_dq_kernel(const BwdParams p) {
-    using L = DqLayout<D, BQ, BK>;
-    constexpr int RQ = BQ / 16;            // query rows per thread
-    constexpr int CK = BK / 16;            // key columns per thread
-    constexpr int VW = (D >= 64) ? 4 : 2;  // output columns per vector
-    constexpr int NV = D / 16 / VW;        // output vectors per thread
+    using L = DqLayout<T, D, BQ, BK>;
+    using W = Warp<T>;
+    constexpr int NT = 2 * BQ;       // threads: BQ / 16 warps
     constexpr int S = L::kStride;
-    constexpr int DS = L::kDsStride;
+    constexpr int KT = BK / 8;       // 8-column tiles of S and dP (keys)
+    constexpr int DT = D / 8;        // 8-column tiles of dQ
 
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    float* smem = reinterpret_cast<float*>(smem_raw);
-    float* q_s = smem + L::kQ;
-    float* do_s = smem + L::kDo;
-    float* k_s = smem + L::kK;
-    float* v_s = smem + L::kV;
-    float* ds_s = smem + L::kDs;
+    T* smem = reinterpret_cast<T*>(smem_raw);
 
     const int tid = threadIdx.x;
-    const int tx = tid & 15;
-    const int ty = tid >> 4;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
     const int bh = blockIdx.y;
     const int b = bh / p.heads;
     const int h = bh % p.heads;
     const int q0 = blockIdx.x * BQ;
+    const int row0 = 16 * warp;
 
     const T* q_g = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh
         + static_cast<long long>(q0) * p.q_st;
@@ -292,77 +125,77 @@ flash_bwd_dq_kernel(const BwdParams p) {
     const T* k_g = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
     const T* v_g = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
 
-    load_tile<T, D, BQ, S>(do_s, do_g, p.do_st, tid);
-    load_tile_scaled<T, D, BQ, S>(q_s, q_g, p.q_st, tid, p.logit_scale);
+    // K and V of key tile `tile` into ring stage `stage`
+    auto copy_stage = [&](int tile, int stage) {
+        const long long k0 = static_cast<long long>(tile) * BK;
+        flash_mma::copy_tile<T, BK, D, S, NT>(
+            smem + L::kK + stage * BK * S, k_g + k0 * p.k_st, p.k_st, tid);
+        flash_mma::copy_tile<T, BK, D, S, NT>(
+            smem + L::kV + stage * BK * S, v_g + k0 * p.v_st, p.v_st, tid);
+        flash_mma::cp_async_commit();
+    };
 
-    float lse2[RQ], dlt[RQ];
-#pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-        const long long row = static_cast<long long>(bh) * p.t + q0 + ty
-            + 16 * i;
-        lse2[i] = p.lse[row] * kLog2e;
-        dlt[i] = p.delta[row];
-    }
+    flash_mma::copy_tile<T, BQ, D, S, NT>(smem + L::kQ, q_g, p.q_st, tid);
+    flash_mma::copy_tile<T, BQ, D, S, NT>(smem + L::kDo, do_g, p.do_st, tid);
+    copy_stage(0, 0);  // one group with Q and dO
 
-    float acc[RQ][NV][VW];
-#pragma unroll
-    for (int i = 0; i < RQ; ++i)
-#pragma unroll
-        for (int j = 0; j < NV; ++j)
-#pragma unroll
-            for (int c = 0; c < VW; ++c) acc[i][j][c] = 0.0f;
+    // lse (in log2 units) and delta of this thread's rows g and g + 8
+    const long long row = static_cast<long long>(bh) * p.t + q0 + row0
+        + (lane >> 2);
+    const float lse2[2] = {p.lse[row] * kLog2e, p.lse[row + 8] * kLog2e};
+    const float dlt[2] = {p.delta[row], p.delta[row + 8]};
 
+    float acc[DT][4];
+#pragma unroll
+    for (int i = 0; i < DT; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
+
+    const T* q_w = smem + L::kQ + row0 * S;
+    const T* do_w = smem + L::kDo + row0 * S;
     const int n_tiles = p.t / BK;
     for (int tile = 0; tile < n_tiles; ++tile) {
-        __syncthreads();  // everyone is done with K, V and dS of the last tile
-        const long long k0 = static_cast<long long>(tile) * BK;
-        load_tile<T, D, BK, S>(k_s, k_g + k0 * p.k_st, p.k_st, tid);
-        load_tile<T, D, BK, S>(v_s, v_g + k0 * p.v_st, p.v_st, tid);
-        cp_async_wait_all();
-        __syncthreads();
-
-        // S = Q K^T (log2 units) and dP = dO V^T
-        float s[RQ][CK], dp[RQ][CK];
-        dual_dot<D, RQ, CK, S>(q_s, do_s, k_s, v_s, ty, tx, s, dp);
-#pragma unroll
-        for (int i = 0; i < RQ; ++i)
-#pragma unroll
-            for (int j = 0; j < CK; ++j) {
-                const float pv = exp2f(s[i][j] - lse2[i]);
-                ds_s[(ty + 16 * i) * DS + tx + 16 * j] = pv * (dp[i][j] - dlt[i]);
-            }
-        __syncthreads();
-
-        // dQ += dS K, columns (16 j + tx) * VW + c
-#pragma unroll 2
-        for (int kk = 0; kk < BK; kk += 4) {
-            float dsr[RQ][4];
-#pragma unroll
-            for (int i = 0; i < RQ; ++i) {
-                const float4 x = *reinterpret_cast<const float4*>(
-                    ds_s + (ty + 16 * i) * DS + kk);
-                dsr[i][0] = x.x; dsr[i][1] = x.y; dsr[i][2] = x.z; dsr[i][3] = x.w;
-            }
-#pragma unroll
-            for (int j = 0; j < NV; ++j) {
-                float kv[4][VW];
-#pragma unroll
-                for (int r = 0; r < 4; ++r)
-                    read_vec<VW>(k_s + (kk + r) * S + (16 * j + tx) * VW, kv[r]);
-#pragma unroll
-                for (int i = 0; i < RQ; ++i)
-#pragma unroll
-                    for (int r = 0; r < 4; ++r)
-#pragma unroll
-                        for (int c = 0; c < VW; ++c)
-                            acc[i][j][c] = fmaf(dsr[i][r], kv[r][c], acc[i][j][c]);
-            }
+        const int stage = tile & 1;
+        if (tile + 1 < n_tiles) {
+            copy_stage(tile + 1, stage ^ 1);
+            flash_mma::cp_async_wait<1>();  // tile `tile` (and Q, dO) landed
+        } else {
+            flash_mma::cp_async_wait<0>();
         }
+        __syncthreads();
+        const T* k_s = smem + L::kK + stage * BK * S;
+        const T* v_s = smem + L::kV + stage * BK * S;
+
+        // S = Q K^T and dP = dO V^T: rows queries, columns keys
+        float s[KT][4], dp[KT][4];
+#pragma unroll
+        for (int j = 0; j < KT; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) { s[j][c] = 0.0f; dp[j][c] = 0.0f; }
+        W::template gemm_nt<KT, D, S>(s, q_w, k_s, lane);
+        W::template gemm_nt<KT, D, S>(dp, do_w, v_s, lane);
+
+        // P = exp2(s^2 log2(e) S - lse log2(e)), dS = P (dP - delta) in dp;
+        // element c of a tile is row g + 8 (c >> 1)
+#pragma unroll
+        for (int j = 0; j < KT; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+                const float pv = exp2f(s[j][c] * p.logit_scale
+                                       - lse2[c >> 1]);
+                dp[j][c] = pv * (dp[j][c] - dlt[c >> 1]);
+            }
+
+        // dQ += dS K over this tile's keys
+        W::template gemm_pn<KT, DT, S>(acc, dp, k_s, lane);
+        __syncthreads();  // everyone is done with this stage before the
+                          // copy of tile + 2 is issued into it
     }
 
     T* dq_g = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh
-        + static_cast<long long>(q0) * p.dq_st;
-    store_rows<T, RQ, NV, VW>(dq_g, p.dq_st, ty, tx, p.grad_scale, acc);
+        + static_cast<long long>(q0 + row0) * p.dq_st;
+    flash_mma::store_rows<T, DT>(dq_g, p.dq_st, acc, p.grad_scale,
+                                 p.grad_scale, lane);
 }
 
 // ------------------------------------------------------------------ dK, dV
@@ -519,13 +352,13 @@ flash_bwd_dkv_kernel(const BwdParams p) {
 
 template <typename T, int D, int BQ, int BK>
 cudaError_t launch_dq(const BwdParams& p, int batch, cudaStream_t stream) {
-    constexpr int kBytes = DqLayout<D, BQ, BK>::kBytes;
+    constexpr int kBytes = DqLayout<T, D, BQ, BK>::kBytes;
     cudaError_t err = cudaFuncSetAttribute(
         flash_bwd_dq_kernel<T, D, BQ, BK>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
     if (err != cudaSuccess) return err;
     const dim3 grid(p.t / BQ, batch * p.heads);
-    flash_bwd_dq_kernel<T, D, BQ, BK><<<grid, kThreads, kBytes, stream>>>(p);
+    flash_bwd_dq_kernel<T, D, BQ, BK><<<grid, 2 * BQ, kBytes, stream>>>(p);
     return cudaGetLastError();
 }
 
@@ -542,15 +375,20 @@ cudaError_t launch_dkv(const BwdParams& p, int batch, cudaStream_t stream) {
     return cudaGetLastError();
 }
 
-// dq tiles (BQ x BK): 64 x 64 except at D = 256 (64 x 32), where the D-wide
-// tiles would not fit in shared memory. dkv tiles (output columns DO, BK keys
-// x BQ queries), chosen so that ptxas spills nothing up to D = 128 (a thread
-// holds dK and dV, D/2 registers each, S^T and dP^T, BQ/2 each, and the
-// products' fragments): 128 keys (8 warps) and 32-query tiles up to D = 64;
-// at D = 128 16-query tiles for float32, and two column halves of 64 with
-// 32-query tiles for bfloat16 (whose fragments take more registers); at
+// Tiles, chosen so that ptxas spills nothing up to D = 128. dq (BQ queries
+// x BK keys; a thread holds dQ, D/2 registers, S and dP, BK/2 each, and the
+// products' fragments): float32 128 queries (8 warps) and 64-key tiles up to
+// D = 64, 32-key tiles at D = 128 (Q, dO and the K/V ring then take 198 KB);
+// bfloat16 the same at D = 32, else 64 queries (4 warps: two blocks share an
+// SM, which ran faster than 128 queries on an H100) with 64-key tiles at
+// D = 64 and 32-key tiles at D = 128 (64 keys spill there); at
+// D = 256 64 queries and 16-key tiles (float32: 195 KB). dkv (output
+// columns DO, BK keys x BQ queries; a thread holds dK and dV, D/2 registers
+// each, S^T and dP^T, BQ/2 each): 128 keys (8 warps) and 32-query tiles up to
+// D = 64; at D = 128 16-query tiles for float32, and two column halves of 64
+// with 32-query tiles for bfloat16 (whose fragments take more registers); at
 // D = 256 two column halves of 128, 64 keys and 16-query tiles (the float32
-// K, V and the Q/dO ring take 200 KB).
+// K, V and the Q/dO ring take 195 KB).
 template <typename T>
 cudaError_t launch_for_d(const BwdParams& p, int batch, int d, bool dkv,
                          cudaStream_t stream) {
@@ -570,10 +408,18 @@ cudaError_t launch_for_d(const BwdParams& p, int batch, int d, bool dkv,
         }
     }
     switch (d) {
-        case 32: return launch_dq<T, 32, 64, 64>(p, batch, stream);
-        case 64: return launch_dq<T, 64, 64, 64>(p, batch, stream);
-        case 128: return launch_dq<T, 128, 64, 64>(p, batch, stream);
-        case 256: return launch_dq<T, 256, 64, 32>(p, batch, stream);
+        case 32: return launch_dq<T, 32, 128, 64>(p, batch, stream);
+        case 64:
+            if constexpr (kBf16)
+                return launch_dq<T, 64, 64, 64>(p, batch, stream);
+            else
+                return launch_dq<T, 64, 128, 64>(p, batch, stream);
+        case 128:
+            if constexpr (kBf16)
+                return launch_dq<T, 128, 64, 32>(p, batch, stream);
+            else
+                return launch_dq<T, 128, 128, 32>(p, batch, stream);
+        case 256: return launch_dq<T, 256, 64, 16>(p, batch, stream);
         default: return cudaErrorInvalidValue;
     }
 }

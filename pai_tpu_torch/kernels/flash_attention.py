@@ -26,12 +26,11 @@ needs.
   1 GB per head, hence blockwise.
 
 Bound on an H100: operations — ``4*B*H*T*T*D`` forward, ``6*...`` for dq and
-``8*...`` for dk and dv, against some ``4-8*B*H*T*D`` elements moved. The
-forward and dkv kernels run on the tensor cores: bf16 ``mma`` for bfloat16
-operands (989 TFLOP/s dense), 3xTF32 for float32 ones (float32 accuracy at up
-to a third of the 495 TFLOP/s TF32 rate); dq runs float32 FMAs on the CUDA
-cores (67 TFLOP/s). The kernels' designs are described at the top of their
-``.cu`` sources; measured times are in PERF.md.
+``8*...`` for dk and dv, against some ``4-8*B*H*T*D`` elements moved. All
+three kernels run on the tensor cores: bf16 ``mma`` for bfloat16 operands
+(989 TFLOP/s dense), 3xTF32 for float32 ones (float32 accuracy at up to a
+third of the 495 TFLOP/s TF32 rate). The kernels' designs are described at
+the top of their ``.cu`` sources; measured times are in PERF.md.
 
 The wrappers take strided views (last dimension contiguous, the other strides
 multiples of 16 bytes): the q, k, v slices of one packed

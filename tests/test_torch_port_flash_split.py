@@ -9,13 +9,14 @@ flash_mma.cuh``), emulated in PyTorch on the CPU and held against float64.
   probabilities P (and dS^T) enter their products as two bf16 terms,
   hi = bf16(p), lo = bf16(p - hi).
 
-Checks: (a) the emulated 3xTF32 forward (o, lse) and dkv (dk, dv) are within
-twice the plain float32 version's error against float64; (b) the emulated
-bf16 kernels' outputs equal the plain version's bf16 outputs to within one
-bf16 unit in the last place; (c) both hold where q and k are four times
-larger and the softmax is nearly one-hot. A single bf16 term for P (and P^T,
-dS^T) fails (b), and a single TF32 term fails (a) by far: both are checked,
-so the tests can tell. Shapes (1,2,256,64) and (1,1,256,32); no card.
+Checks: (a) the emulated 3xTF32 forward (o, lse), dq and dkv (dk, dv) are
+within twice the plain float32 version's error against float64; (b) the
+emulated bf16 kernels' outputs equal the plain version's bf16 outputs to
+within one bf16 unit in the last place; (c) both hold where q and k are four
+times larger and the softmax is nearly one-hot. A single bf16 term for P
+(and P^T, dS, dS^T) fails (b), and a single TF32 term fails (a) by far: both
+are checked, so the tests can tell. Shapes (1,2,256,64) and (1,1,256,32); no
+card.
 
 The float32 sums here round to nearest. The tensor cores add into their
 accumulators with truncation, which the kernels counter with partial sums of
@@ -94,6 +95,18 @@ def emulate_forward(q, k, v, mm_qk, mm_pv):
     return acc / l, lse.reshape(b * h, t)
 
 
+def emulate_dq(q, k, v, do, lse, delta, mm_qk, mm_dsk):
+    """The dq kernel: S = Q K^T, dP = dO V^T, P, dS, then dQ = s^2 dS K
+    (dS straight from the accumulator, as the A operand)."""
+    b, h, t, d = q.shape
+    s = mm_qk(q, k.transpose(-1, -2))
+    dp = mm_qk(do, v.transpose(-1, -2))
+    lse2 = lse.reshape(b, h, t, 1) * LOG2E
+    p = torch.exp2(s * (LOG2E / d ** 0.5) - lse2)
+    ds = p * (dp - delta.reshape(b, h, t, 1))
+    return mm_dsk(ds, k) * d ** -0.5
+
+
 def emulate_dkv(q, k, v, do, lse, delta, mm_kq, mm_pd):
     """The dkv kernel: S^T = K Q^T, dP^T = V dO^T, P^T, dS^T, then
     dV = P^T dO and dK = s^2 dS^T Q."""
@@ -107,7 +120,7 @@ def emulate_dkv(q, k, v, do, lse, delta, mm_kq, mm_pd):
 
 
 def reference64(q, k, v, do):
-    """(o, lse, dk, dv) in float64 by the definitions."""
+    """(o, lse, dk, dv, dq) in float64 by the definitions."""
     q, k, v, do = (x.double() for x in (q, k, v, do))
     b, h, t, d = q.shape
     logits = torch.matmul(q, k.transpose(-1, -2)) * d ** -0.5
@@ -118,7 +131,8 @@ def reference64(q, k, v, do):
     ds = p * (torch.matmul(do, v.transpose(-1, -2)) - delta)
     dk = torch.matmul(ds.transpose(-1, -2), q) * d ** -0.5
     dv = torch.matmul(p.transpose(-1, -2), do)
-    return o, lse.reshape(b * h, t), dk, dv
+    dq = torch.matmul(ds, k) * d ** -0.5
+    return o, lse.reshape(b * h, t), dk, dv, dq
 
 
 def inputs(shape, seed, peak):
@@ -139,7 +153,7 @@ CASES = [((1, 2, 256, 64), 0, 1.0), ((1, 1, 256, 32), 1, 1.0),
 @pytest.mark.parametrize("shape,seed,peak", CASES)
 def test_3xtf32_within_twice_the_float32_error(shape, seed, peak):
     q, k, v, do = inputs(shape, seed, peak)
-    o64, lse64, dk64, dv64 = reference64(q, k, v, do)
+    o64, lse64, dk64, dv64, _ = reference64(q, k, v, do)
     o, lse = emulate_forward(q, k, v, mm_3xtf32, mm_3xtf32)
     plain_o, plain_lse = fa.flash_attention_plain(q, k, v, emit_lse=True)
     for got, plain, ref in ((o, plain_o, o64), (lse, plain_lse, lse64)):
@@ -192,6 +206,36 @@ def test_bf16_split_p_within_one_ulp_of_the_plain_version(shape, seed, peak):
                            mm_single_p)
     assert not within_one_ulp(dk1.bfloat16(), plain_dk)
     assert not within_one_ulp(dv1.bfloat16(), plain_dv)
+
+
+@pytest.mark.parametrize("shape,seed,peak", CASES)
+def test_dq_3xtf32_within_twice_the_float32_error(shape, seed, peak):
+    q, k, v, do = inputs(shape, seed, peak)
+    dq64 = reference64(q, k, v, do)[4]
+    plain_o, plain_lse = fa.flash_attention_plain(q, k, v, emit_lse=True)
+    delta = fa._delta(plain_o, do)
+    dq = emulate_dq(q, k, v, do, plain_lse, delta, mm_3xtf32, mm_3xtf32)
+    plain_dq = fa.flash_attention_backward_plain(
+        q, k, v, plain_o, plain_lse, do)[0]
+    assert max_err(dq, dq64) <= 2.0 * max_err(plain_dq, dq64)
+
+
+@pytest.mark.parametrize("shape,seed,peak", CASES)
+def test_dq_bf16_split_ds_within_one_ulp_of_the_plain_version(shape, seed,
+                                                              peak):
+    q, k, v, do = (x.bfloat16() for x in inputs(shape, seed, peak))
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    plain_o, plain_lse = fa.flash_attention_plain(q, k, v, emit_lse=True)
+    plain_dq = fa.flash_attention_backward_plain(
+        q, k, v, plain_o, plain_lse, do)[0]
+    delta = fa._delta(plain_o, do)
+    dq = emulate_dq(qf, kf, vf, dof, plain_lse, delta, torch.matmul,
+                    mm_split_p)
+    assert within_one_ulp(dq.bfloat16(), plain_dq)
+    # a single bf16 term for dS would not hold it
+    dq1 = emulate_dq(qf, kf, vf, dof, plain_lse, delta, torch.matmul,
+                     mm_single_p)
+    assert not within_one_ulp(dq1.bfloat16(), plain_dq)
 
 
 def test_tf32_rounding_is_round_to_nearest_even():
