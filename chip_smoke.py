@@ -19,11 +19,15 @@ for). Phases, each printing one JSON line:
    ``build`` — per flash kernel instantiation, ptxas's registers and spills
    (``-Xptxas -v``) and, where the toolkit has ``cuobjdump``, the count of
    HMMA (tensor-core) instructions in its SASS: every flash kernel (forward,
-   dq, dkv) must have some, and no spills up to D = 128.
+   dq, dkv) must have some, and no spills up to D = 128; the same report of
+   the three SSIM kernels, none of which may spill.
 2. ``kernels`` — each kernel's wrapper against its plain version on CUDA
    tensors at the shapes the report path gives it and at ragged and
    multi-channel shapes; times by CUDA events (warmed, median of 25 samples
-   of 20 calls).
+   of 20 calls). The report's one SSIM launch (map, per-image SSIM and the
+   depth bands) against the band-by-band plain version at the report's batch
+   and at two shapes with a short last band, bit-reproducible, and a band of
+   10 rows raising.
    The flash-attention cases, forward and backward: the shapes the Palette
    paths launch, every head dim in float32 and bfloat16, a peaked case of
    each type (q and k four times larger: a nearly one-hot softmax), strided
@@ -55,9 +59,12 @@ for). Phases, each printing one JSON line:
    at ``--precision 32``: 4 steps, a validation, best and last slots; then
    single steps at batch 4 (profiled: device busy time and per-kernel time)
    and 8.
-7. ``bf16`` — the same UNet under ``--precision bf16-mixed``: one forward at
-   batch 2 and one training step at batch 4, timed, with the flash launches
-   and the dtype of their operands (bfloat16), finite outputs and gradients.
+7. ``bf16`` — each bf16 rounding point of the layers, and a small UNet's
+   bf16 forward, on the card against the same code on the CPU, each with a
+   control that must fail; then the full-width UNet under ``--precision
+   bf16-mixed``: one forward at batch 2 and one training step at batch 4,
+   timed, with the flash launches and the dtype of their operands
+   (bfloat16), finite outputs and gradients.
 
 Then one line ``{"kernels": [...]}`` with, per kernel, its route, source, the
 TPU kernel it replaces, its launches in phase 3, its error against the plain
@@ -98,6 +105,14 @@ SSIM_FLOP_PER_PIXEL = 5 * 11 * 2 * 2 + 3 + 17
 
 MAP_TOL = 2e-5        # SSIM map, kernel vs plain: float32 FMAs vs separate
 PER_IMAGE_TOL = 1e-5  # multiply and add, summed in another order
+# one ssim_map launch per report batch: the map, the per-image SSIM and the
+# 16 depth bands (ssim_report_fused)
+SSIM_MAP_LAUNCHES_PER_BATCH = 1
+# the CUDA kernels each SSIM wrapper launches, as the profiler names them
+SSIM_KERNEL_NAMES = {"ssim_map": ("ssim_rows_kernel<true>",
+                                  "ssim_finish_kernel"),
+                     "ssim_scalar": ("ssim_rows_kernel<false>",
+                                     "ssim_finish_kernel")}
 FORWARD_TOL = 1e-3    # card vs CPU forward, true float32 both, 16 conv layers
 
 # flash attention, kernel vs plain version. float32 operands: the same
@@ -317,9 +332,46 @@ def phase_build():
         if have_cuobjdump:
             check(e.get("hmma", 0) > 0, f"{e['kernel']} {e['dtype']} D={d} "
                   "has no HMMA instruction: not on the tensor cores")
+    ssim_rows = ssim_ptxas(kernels.build_log("ssim"))
+    check(len(ssim_rows) == 3, f"ptxas reported {len(ssim_rows)} SSIM "
+          "kernels, expected 3 (rows<true>, rows<false>, finish)")
+    for e in ssim_rows:
+        check(e.get("spill_stores") == 0 and e.get("spill_loads") == 0,
+              f"SSIM kernel {e['kernel']} spills: {e}")
     return {"phase": "build", "cuobjdump": have_cuobjdump,
             "kernel_build_seconds": kernels.build_seconds,
-            "instantiations": rows}
+            "instantiations": rows, "ssim": ssim_rows}
+
+
+def ssim_ptxas(log):
+    """Registers, spills and ptxas's resource line of each SSIM kernel, from
+    the ``-Xptxas -v`` report of its library."""
+    rows, entry = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            kernel = ("ssim_rows_kernel<true>" if "ssim_rows_kernelILb1" in name
+                      else "ssim_rows_kernel<false>"
+                      if "ssim_rows_kernelILb0" in name
+                      else "ssim_finish_kernel"
+                      if "ssim_finish_kernel" in name else None)
+            entry = None if kernel is None else {"kernel": kernel}
+            if entry is not None:
+                rows.append(entry)
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            entry["spill_stores"] = int(m.group(1))
+            entry["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["registers"] = int(m.group(1))
+            entry["ptxas"] = line.split(":", 1)[-1].strip()
+    return rows
 
 
 def ssim_bound(shape, kernel):
@@ -359,8 +411,8 @@ def phase_kernels(device):
              ((2, 48, 48, 3), ("ssim_map", "ssim_scalar"))]
     wrappers = {"ssim_map": ssim.ssim_parts_fused,
                 "ssim_scalar": ssim.ssim_per_image_fused}
-    cuda_names = {"ssim_map": ("ssim_map_kernel",),
-                  "ssim_scalar": ("ssim_scalar_kernel", "ssim_finish_kernel")}
+    cuda_names = {"ssim_map": SSIM_KERNEL_NAMES["ssim_map"],
+                  "ssim_scalar": SSIM_KERNEL_NAMES["ssim_scalar"]}
     results = {name: [] for name in wrappers}
     for seed, (shape, names) in enumerate(cases):
         pred, target = random_pair(shape, seed, device)
@@ -445,11 +497,82 @@ def phase_kernels(device):
             continue
         raise SmokeFailure("a 10-row CUDA tensor did not raise")
 
+    report = report_cases(device)
     emit({"phase": "kernels", "kernels": sorted(results),
           "limits": {"map": MAP_TOL, "per_image": PER_IMAGE_TOL},
           "strided_band_max_abs_err": strided,
-          "gradient_max_abs_err": grad_err, "cases": results})
-    return results
+          "gradient_max_abs_err": grad_err, "cases": results,
+          "report_cases": report})
+    return results, report
+
+
+def report_cases(device):
+    """``ssim_report_fused`` (one ``ssim_map`` launch: map, per-image SSIM
+    and every depth band) and ``ssim_bands_fused`` (``ssim_scalar``, no map)
+    against the plain band-by-band formulation, ``ssim_report_plain``, which
+    computes each band as an image of its own: the card checks the identity
+    the kernels rely on (a band's SSIM is a mean over rows of the whole
+    map). The report's batch; a ragged width with a short last band; three
+    channels with 6 bands and a short last band. Two calls must agree bit for
+    bit, and a band of 10 rows must raise."""
+    from pai_tpu_torch import kernels
+    from pai_tpu_torch.kernels import ssim
+
+    out = []
+    for seed, (shape, depths) in enumerate((((8, 256, 256, 1), 16),
+                                            ((3, 252, 97, 1), 16),
+                                            ((2, 71, 40, 3), 6))):
+        pred, target = random_pair(shape, 20 + seed, device)
+        want = ssim.ssim_report_plain(pred, target, depths)
+        before = dict(kernels.launch_counts)
+        got = ssim.ssim_report_fused(pred, target, depths)
+        again = ssim.ssim_report_fused(pred, target, depths)
+        bands_only = ssim.ssim_bands_fused(pred, target, depths)
+        torch.cuda.synchronize()
+        check(kernels.launch_counts["ssim_map"] == before["ssim_map"] + 2
+              and kernels.launch_counts["ssim_scalar"]
+              == before["ssim_scalar"] + 1,
+              f"report entry launches at {shape}: {kernels.launch_counts}")
+        check(got[1].shape == pred.shape
+              and got[2].shape == want[2].shape == (shape[0], depths),
+              f"report entry shapes at {shape}: "
+              f"{[tuple(t.shape) for t in got]}")
+        entry = {"shape": list(shape), "num_depths": depths,
+                 "band_rows": ssim.band_rows(shape[1], depths)[-1],
+                 "max_abs_err_map": float((got[1] - want[1]).abs().max()),
+                 "max_abs_err_per_image": float(
+                     (got[0] - want[0]).abs().max()),
+                 "max_abs_err_bands": float((got[2] - want[2]).abs().max()),
+                 "max_abs_err_bands_no_map": float(
+                     (bands_only - want[2]).abs().max()),
+                 "bit_identical": all(torch.equal(a, b)
+                                      for a, b in zip(got, again))}
+        check(entry["max_abs_err_map"] <= MAP_TOL
+              and max(entry["max_abs_err_per_image"],
+                      entry["max_abs_err_bands"],
+                      entry["max_abs_err_bands_no_map"]) <= PER_IMAGE_TOL,
+              f"ssim_report_fused differs from the band-by-band plain "
+              f"version at {shape}: {entry}")
+        check(entry["bit_identical"],
+              f"two ssim_report_fused calls differ at {shape}")
+        if seed == 0:  # the report batch: timed
+            bound_ms, bound_by = ssim_bound(shape, "ssim_map")
+            entry.update(
+                ms=time_ms(lambda: ssim.ssim_report_fused(pred, target)),
+                plain_ms=time_ms(lambda: ssim.ssim_report_plain(pred, target),
+                                 samples=10, calls=3),
+                kernel_us=device_kernel_us(
+                    lambda: ssim.ssim_report_fused(pred, target),
+                    SSIM_KERNEL_NAMES["ssim_map"]),
+                bound_ms=bound_ms, bound_by=bound_by)
+        out.append(entry)
+    # a band of 10 rows: no interior, as an image of 10 rows
+    pred, target = random_pair((2, 160, 32, 1), 30, device)
+    expect_raises(ValueError, lambda: ssim.ssim_report_fused(pred, target),
+                  "a depth band of 10 rows")
+    expect_raises(ValueError, lambda: ssim.ssim_bands_fused(pred, target),
+                  "a depth band of 10 rows (no map)")
+    return out
 
 
 
@@ -790,10 +913,10 @@ def phase_report(device, workdir):
     launches = dict(kernels.launch_counts)
     # ---- end of the counted window -----------------------------------
 
-    check(map_launches_report == 17 * n_batches,
+    check(map_launches_report == SSIM_MAP_LAUNCHES_PER_BATCH * n_batches,
           f"ssim_map launched {map_launches_report} times in the report, "
-          f"expected 17 x {n_batches}")
-    check(launches["ssim_map"] == 17 * n_batches,
+          f"expected {SSIM_MAP_LAUNCHES_PER_BATCH} x {n_batches}")
+    check(launches["ssim_map"] == SSIM_MAP_LAUNCHES_PER_BATCH * n_batches,
           f"ssim_map count moved outside the report: {launches}")
     check(launches["ssim_scalar"] == n_batches,
           f"ssim_scalar launched {launches['ssim_scalar']} times, expected "
@@ -1061,9 +1184,9 @@ def phase_palette(device, workdir):
           f"flash_fwd launched {launches['flash_fwd']} times on the Palette "
           f"path, expected {FLASH_LAUNCHES_PER_FORWARD} x "
           f"{forwards_report + SAMPLING_STEPS}")
-    check(launches["ssim_map"] == 17 * n_batches,
+    check(launches["ssim_map"] == SSIM_MAP_LAUNCHES_PER_BATCH * n_batches,
           f"ssim_map launched {launches['ssim_map']} times, expected "
-          f"17 x {n_batches}")
+          f"{SSIM_MAP_LAUNCHES_PER_BATCH} x {n_batches}")
 
     rdir = os.path.join(reports_dir, "palette_smoke")
     for name in ("ssim", "psnr", "mse"):
@@ -1191,6 +1314,28 @@ FLASH_BWD_BF16_REL_TOL = 2.0 ** -8
 # thousandth of the largest gradient of all for the tensors whose gradient is
 # float noise (biases a BatchNorm makes irrelevant)
 GRAD_CHECK_TOL = 1e-3
+# bf16-mixed on the card against the same code on the CPU. Layer by layer
+# (bf16_layer_cases): bit-equal in at least BF16_LAYER_EQUAL of the outputs
+# and every output within one bf16 unit at the largest output's magnitude
+# (cuDNN, cuBLAS and the card's exp take float32 sums and functions in
+# another order than the CPU, which moves one value in 10^4 or 10^5 across
+# a bf16 rounding point; where a conv's product and bias nearly cancel, that
+# one unit of the product is many units of the small sum). The library op
+# without the rounding point (the bias inside the linear map, F.silu,
+# F.avg_pool2d) must fall below BF16_LAYER_EQUAL, so the check sees the
+# rounding; a convolution has no such control on the card, because cuDNN
+# adds the bias by an op of its own after the product is rounded, as the JAX
+# package does. The small UNet (bf16_unet_readings): the card's bf16 output
+# against the CPU's, with the CPU's bf16-vs-float32 difference as the scale,
+# the share of outputs bit-equal and the cosine of the two bf16-minus-
+# float32 errors at least BF16_CARD_EQUAL and BF16_CARD_CORR, which the same
+# model on the card in float32 (the control) must fail. Its largest
+# difference is read, not bounded: it is about one bf16 unit of the output
+# for the bf16 model and for the control alike, so it cannot tell them
+# apart.
+BF16_LAYER_EQUAL = 0.999
+BF16_CARD_EQUAL = 0.1
+BF16_CARD_CORR = 0.5
 # per training step of the CLI-default UNet: its 10 flash-path attention
 # calls run forward once in the step and again in the checkpoint's
 # recomputation, and backward once
@@ -1692,7 +1837,7 @@ def flash_operand_types(events):
         r"flash_\w+_kernel<([^,>]+)", name)] if m})
 
 
-def phase_bf16(device, workdir):
+def bf16_path(device, workdir):
     """Palette under ``--precision bf16-mixed`` at the CLI-default width, as
     ``python -m pai_tpu_torch.main ... --precision bf16-mixed`` builds it
     (``loop.Trainer``: bf16 autocast, float32 parameters and BatchNorm, TF32
@@ -1708,6 +1853,7 @@ def phase_bf16(device, workdir):
     from pai_tpu_torch.train import steps as steps_lib
 
     try:
+        apply_precision_policy("bf16-mixed")
         trainer = loop.Trainer(dict(
             name="bf16", data=None, val_data=None, model="palette",
             batch_size=TRAIN_BATCH, precision="bf16-mixed", device="cuda",
@@ -1789,8 +1935,7 @@ def phase_bf16(device, workdir):
     finally:
         apply_precision_policy("32")
     torch.cuda.empty_cache()
-    emit({"phase": "bf16", "precision": "bf16-mixed",
-          "unet_forward_ms_batch_2": forward_ms,
+    return {"unet_forward_ms_batch_2": forward_ms,
           "forward_flash_fwd_ms": forward_flash_ms,
           "forward_device_ms": forward_device_ms,
           "forward_launches": forward_launches,
@@ -1806,11 +1951,168 @@ def phase_bf16(device, workdir):
           "kernel_share_of_step": {k: v / step_ms
                                    for k, v in kernel_ms.items()},
           "step_top_device_events_us": [[name[:80], us]
-                                        for name, us in top_events]})
+                                        for name, us in top_events]}
 
 
-def kernels_line(cases, launches, flash_cases, palette_launches, bwd_cases,
-                 train_launches):
+def phase_bf16(device, workdir):
+    """bf16-mixed: bf16_card_vs_cpu under the bf16-mixed precision policy,
+    then bf16_path."""
+    from pai_tpu_torch.config import apply_precision_policy
+
+    try:
+        apply_precision_policy("bf16-mixed")
+        held = bf16_card_vs_cpu(device)
+    finally:
+        apply_precision_policy("32")
+    emit({"phase": "bf16", "precision": "bf16-mixed",
+          "bf16_card_vs_cpu": held, **bf16_path(device, workdir)})
+
+
+def bf16_layer_cases(device):
+    """Each bf16 rounding point of ``pai_tpu_torch/ops/layers.py`` on the
+    card against the CPU, same weights and bf16 input, under bf16 autocast:
+    (name, largest difference in bf16 units at the largest output's
+    magnitude, equal share, control's equal share or None)."""
+    import copy
+
+    from pai_tpu_torch.models.diffusion_unet import TokenConv1d
+    from pai_tpu_torch.ops import layers as L
+
+    gen = torch.Generator().manual_seed(21)
+    x = torch.randn((4, 64, 32, 32), generator=gen).bfloat16().contiguous(
+        memory_format=torch.channels_last)
+    tokens = torch.randn((4, 256, 64), generator=gen).bfloat16()
+    nn_f = torch.nn.functional
+
+    def product(module, inp, library=None):
+        module.bias.data.normal_(0.0, 0.3, generator=gen)
+        return module, inp, library
+
+    conv = L.Conv(64, 64, 3, padding=1, init_mode="torch", generator=gen)
+    convt = L.ConvTranspose(64, 32, generator=gen)
+    dense = L.Dense(64, 128, init_mode="torch", generator=gen)
+    token = TokenConv1d(64, 192, generator=gen)
+    norm = L.BatchNorm(64)
+    norm.running_mean.normal_(0.0, 0.2, generator=gen)
+    norm.running_var.uniform_(0.5, 1.5, generator=gen)
+    fused = L.Conv(64, 64, 3, padding=1, init_mode="torch", generator=gen,
+                   float32_sum=True)
+    cases = {
+        "conv": product(conv, x),
+        "conv_transpose": product(convt, x),
+        "dense": product(dense, tokens, lambda m, a: nn_f.linear(
+            a, m.weight, m.bias)),
+        "token_conv1d": product(token, tokens, lambda m, a: nn_f.linear(
+            a, m.weight[:, :, 0], m.bias)),
+        "silu": (L.SiLU(), 3 * x, lambda m, a: nn_f.silu(a)),
+        "avg_pool_2x": (None, x, lambda m, a: nn_f.avg_pool2d(a, 2)),
+        "batchnorm_eval": (norm.eval(), x, None),
+        "batchnorm_train": (copy.deepcopy(norm).train(), x, None),
+        "conv_float32_sum_batchnorm": (torch.nn.Sequential(
+            fused, copy.deepcopy(norm).eval()), x, None),
+    }
+    rows = []
+    for name, (module, inp, library) in cases.items():
+        card_module = None if module is None else copy.deepcopy(
+            module).to(device)
+        outs = []
+        for m, a in ((module, inp), (card_module, inp.to(device))):
+            with torch.no_grad(), torch.autocast(a.device.type,
+                                                 dtype=torch.bfloat16):
+                outs.append((L.avg_pool_2x(a) if m is None else m(a)).cpu())
+                if library is not None and m is card_module:
+                    control = library(m, a).cpu()
+        cpu, card = outs
+        check(card.dtype == cpu.dtype == torch.bfloat16,
+              f"bf16 layer {name}: {card.dtype}, CPU {cpu.dtype}")
+        unit = float(2.0 ** (np.floor(np.log2(float(cpu.abs().max()))) - 7))
+        rows.append((name, float((card - cpu).abs().max()) / unit,
+                     float((card == cpu).float().mean()),
+                     None if library is None
+                     else float((control == cpu).float().mean())))
+    return rows
+
+
+def bf16_unet_readings(device):
+    """The gradient check's small UNet (mults 1,2, inner 64, attention at
+    rates 1 and 2 over 64x64 images: the flash kernels' bf16 route at rate 1)
+    at bf16 and at float32, one eval forward each on the card and on the CPU
+    from the same weights and inputs. Per card result against the CPU's bf16
+    output: ``gap``, the largest difference over the CPU's largest
+    bf16-vs-float32 difference; ``equal``, the share bit-equal; ``corr``,
+    the cosine between the card's error against the CPU's float32 output and
+    the CPU's bf16 error."""
+    from pai_tpu_torch.models.diffusion_unet import DiffusionUNet
+
+    kwargs = dict(in_channels=2, out_channels=1, inner_channel=64,
+                  channel_mults=(1, 2), attn_res=(1, 2), num_heads=2)
+    cpu_model = perturbed_unet(torch.Generator().manual_seed(5),
+                               **kwargs).eval()
+    card_model = DiffusionUNet(device="meta", **kwargs)
+    card_model.load_state_dict(cpu_model.state_dict(), assign=True)
+    card_model = card_model.to(device).to(
+        memory_format=torch.channels_last).eval()
+    rng = np.random.default_rng(13)
+    x, y = (torch.from_numpy(rng.uniform(-1, 1, (2, 64, 64, 1)).astype(
+        np.float32)) for _ in range(2))
+    gamma = torch.tensor([0.3, 0.8])
+    outs = {}
+    with torch.inference_mode():
+        for dtype in (torch.bfloat16, torch.float32):
+            for where, model, dev in (("cpu", cpu_model, "cpu"),
+                                      ("card", card_model, device)):
+                model.compute_dtype = dtype
+                outs[where, dtype] = model(x.to(dev), y.to(dev),
+                                           gamma.to(dev)).cpu().double()
+    ref16, ref32 = outs["cpu", torch.bfloat16], outs["cpu", torch.float32]
+    theirs = ref16 - ref32
+    readings = {"cpu_bf16_vs_float32": float(theirs.abs().max()),
+                "output_max_abs": float(ref16.abs().max())}
+    for dtype, key in ((torch.bfloat16, "card_bf16"),
+                       (torch.float32, "card_float32_control")):
+        got = outs["card", dtype]
+        check(bool(torch.isfinite(got).all()),
+              f"small UNet {key}: non-finite output")
+        mine = got - ref32
+        readings[key] = {
+            "gap": float((got - ref16).abs().max() / theirs.abs().max()),
+            "equal": float((got == ref16).double().mean()),
+            "corr": float((mine * theirs).sum()
+                          / (mine.norm() * theirs.norm()).clamp_min(1e-300))}
+    return readings
+
+
+def bf16_card_vs_cpu(device):
+    """bf16-mixed on the card against the CPU: bf16_layer_cases and
+    bf16_unet_readings, held to the BF16_* limits above."""
+    layers = bf16_layer_cases(device)
+    for name, units, equal, control in layers:
+        check(units <= 1.0 and equal >= BF16_LAYER_EQUAL,
+              f"bf16 layer {name}, card vs CPU: {units} units at the largest "
+              f"output, {equal} bit-equal (limits 1, {BF16_LAYER_EQUAL})")
+        check(control is None or control < BF16_LAYER_EQUAL,
+              f"bf16 layer {name}: the library op without the rounding point "
+              f"is {control} bit-equal to the CPU, so the check cannot see it")
+    unet = bf16_unet_readings(device)
+
+    def passes(r):
+        return r["equal"] >= BF16_CARD_EQUAL and r["corr"] >= BF16_CARD_CORR
+
+    check(passes(unet["card_bf16"]) and not passes(
+        unet["card_float32_control"]),
+          f"small UNet at bf16, card vs CPU: {unet} (limits equal "
+          f">= {BF16_CARD_EQUAL}, corr >= {BF16_CARD_CORR}; the float32 "
+          f"control must fail them)")
+    return {"layers": [{"name": n, "max_units": u, "equal": e,
+                        "control_equal": c} for n, u, e, c in layers],
+            "unet": unet,
+            "limits": {"layer_units": 1.0, "layer_equal": BF16_LAYER_EQUAL,
+                       "unet_equal": BF16_CARD_EQUAL,
+                       "unet_corr": BF16_CARD_CORR}}
+
+
+def kernels_line(cases, report_batch, launches, flash_cases,
+                 palette_launches, bwd_cases, train_launches):
     described = {
         "ssim_map": ("pai_tpu_torch/kernels/csrc/ssim.cu",
                      "pai_tpu/kernels/ssim_pallas.py:137"),
@@ -1818,9 +2120,15 @@ def kernels_line(cases, launches, flash_cases, palette_launches, bwd_cases,
                         "pai_tpu/kernels/ssim_pallas.py:172")}
     out = []
     for name, (source, replaces) in described.items():
-        main = cases[name][0]  # (8,256,256,1): the report batch
+        # (8,256,256,1): the report batch; ssim_map as the report calls it
+        # (ssim_report_fused: map, per-image SSIM and 16 bands)
+        main = report_batch[0] if name == "ssim_map" else cases[name][0]
         errs = [e.get("max_abs_err_map", 0.0) for e in cases[name]] + \
             [e["max_abs_err_per_image"] for e in cases[name]]
+        if name == "ssim_map":
+            errs += [e[k] for e in report_batch for k in (
+                "max_abs_err_map", "max_abs_err_per_image",
+                "max_abs_err_bands")]
         out.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
@@ -1832,7 +2140,7 @@ def kernels_line(cases, launches, flash_cases, palette_launches, bwd_cases,
             "other_shapes": [
                 {k: e[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
                                    "bound_by", "kernel_us")}
-                for e in cases[name][1:]]})
+                for e in cases[name][name != "ssim_map":]]})
         if name == "ssim_map":
             out[-1]["launches_palette_path"] = palette_launches[name]
     main = flash_cases[0]  # (2,4,16384,64): the longer of the Palette path's
@@ -1928,7 +2236,7 @@ def main():
         return out
 
     emit(timed("build", phase_build))
-    cases = timed("kernels", phase_kernels, device)
+    cases, report_batch = timed("kernels", phase_kernels, device)
     flash_cases = timed("flash", phase_flash, device)
     bwd_cases = timed("flash_backward", phase_flash_backward, device)
     with tempfile.TemporaryDirectory(prefix="pai_smoke_") as workdir:
@@ -1947,8 +2255,8 @@ def main():
               f"kernel {name} was not launched on the Palette path")
 
     emit({"phase": "seconds", **seconds})
-    emit(kernels_line(cases, launches, flash_cases, palette_launches,
-                      bwd_cases, train_launches))
+    emit(kernels_line(cases, report_batch, launches, flash_cases,
+                      palette_launches, bwd_cases, train_launches))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

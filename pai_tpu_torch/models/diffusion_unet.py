@@ -47,23 +47,22 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from pai_tpu_torch.ops import (BatchNorm, Conv, Dense, Dropout, avg_pool_2x,
-                               gamma_embedding, upsample_nearest_2x)
+from pai_tpu_torch.ops import (BatchNorm, Conv, Dense, Dropout, SiLU,
+                               avg_pool_2x, gamma_embedding, round_to_compute,
+                               upsample_nearest_2x)
 from pai_tpu_torch.ops.attention import multihead_attention
+from pai_tpu_torch.ops.layers import _bias_after_rounding, bf16_autocast
 
 
-class ZeroConv(nn.Conv2d):
+class ZeroConv(Conv):
     """Conv with zero-initialised kernel and bias (guided_diffusion
     ``zero_module``)."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
-                 padding: int = 1, device=None):
+                 padding: int = 1, device=None, float32_sum: bool = False):
         super().__init__(in_channels, features, kernel_size, 1, padding,
-                         device=device)
-        if not self.weight.is_meta:
-            with torch.no_grad():
-                self.weight.zero_()
-                self.bias.zero_()
+                         init_mode="zeros", device=device,
+                         float32_sum=float32_sum)
 
 
 class TokenConv1d(nn.Conv1d):
@@ -85,12 +84,18 @@ class TokenConv1d(nn.Conv1d):
                 self.bias.uniform_(-bound, bound, generator=generator)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return nn.functional.linear(tokens, self.weight[:, :, 0], self.bias)
+        return _bias_after_rounding(nn.functional.linear, tokens,
+                                    self.weight[:, :, 0], self.bias, (-1,))
 
 
 class ResBlock(nn.Module):
     """FiLM-conditioned residual block with optional up/down sampling
-    (``use_scale_shift_norm=True``). Its dropout draws from ``generator``."""
+    (``use_scale_shift_norm=True``). Its dropout draws from ``generator``.
+    Under bfloat16 autocast ``conv_in`` hands ``norm_out`` its float32 sum,
+    and the block returns the float32 residual sum: XLA keeps both in float32
+    for the BatchNorm that reads them (``pai_tpu/models/diffusion_unet.py:
+    83,99,109``, see ``ops/layers._bias_after_rounding``); every bfloat16
+    reader rounds the returned sum first (``round_to_compute``)."""
 
     def __init__(self, in_channels: int, out_channels: int, emb_channels: int,
                  dropout: float = 0.0, up: bool = False, down: bool = False,
@@ -99,15 +104,15 @@ class ResBlock(nn.Module):
         self.out_channels = out_channels
         self.up, self.down = up, down
         self.in_layers = nn.Sequential(
-            BatchNorm(in_channels, device=device), nn.SiLU(),
+            BatchNorm(in_channels, device=device), SiLU(),
             Conv(in_channels, out_channels, 3, padding=1, init_mode="torch",
-                 generator=generator, device=device))
+                 generator=generator, device=device, float32_sum=True))
         self.emb_layers = nn.Sequential(
-            nn.SiLU(),
+            SiLU(),
             Dense(emb_channels, 2 * out_channels, init_mode="torch",
                   generator=generator, device=device))
         self.out_layers = nn.Sequential(
-            BatchNorm(out_channels, device=device), nn.SiLU(),
+            BatchNorm(out_channels, device=device), SiLU(),
             Dropout(dropout, generator=generator),
             ZeroConv(out_channels, out_channels, 3, 1, device=device))
         if in_channels != out_channels:
@@ -119,16 +124,20 @@ class ResBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         h = self.in_layers[1](self.in_layers[0](x))
+        x = round_to_compute(x)
         if self.up:
             h, x = upsample_nearest_2x(h), upsample_nearest_2x(x)
         elif self.down:
             h, x = avg_pool_2x(h), avg_pool_2x(x)
-        h = self.in_layers[2](h)
+        h = self.out_layers[0](self.in_layers[2](h))
         emb_out = self.emb_layers(emb).to(h.dtype)[:, :, None, None]
         scale, shift = emb_out.chunk(2, dim=1)
-        h = self.out_layers[0](h) * (1 + scale) + shift
+        h = h * (1 + scale) + shift
         h = self.out_layers[3](self.out_layers[2](self.out_layers[1](h)))
-        return self.skip_connection(x) + h
+        skip = self.skip_connection(x)
+        if bf16_autocast(h):
+            return skip.float() + h.float()
+        return skip + h
 
 
 class AttentionBlock(nn.Module):
@@ -153,6 +162,7 @@ class AttentionBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, c, hh, ww = x.shape
         t = hh * ww
+        x = round_to_compute(x)
         tokens = x.permute(0, 2, 3, 1).reshape(n, t, c)
         qkv = self.qkv(self.norm(tokens))
         qkv = qkv.reshape(n, t, self.num_heads, 3, c // self.num_heads)
@@ -203,12 +213,13 @@ class DiffusionUNet(nn.Module):
             return ResBlock(cin, cout, emb_ch, dropout, **updown, **kw)
 
         self.cond_embed = nn.Sequential(
-            Dense(inner, emb_ch, init_mode="torch", **kw), nn.SiLU(),
+            Dense(inner, emb_ch, init_mode="torch", **kw), SiLU(),
             Dense(emb_ch, emb_ch, init_mode="torch", **kw))
 
         ch = mults[0] * inner
         blocks = [EmbedSequential(Conv(in_channels, ch, 3, padding=1,
-                                       init_mode="torch", **kw))]
+                                       init_mode="torch", float32_sum=True,
+                                       **kw))]
         skip_chans = [ch]
         ds = 1
         for level, mult in enumerate(mults):
@@ -241,9 +252,9 @@ class DiffusionUNet(nn.Module):
                 blocks.append(EmbedSequential(*layers))
         self.output_blocks = nn.ModuleList(blocks)
 
-        self.out = nn.Sequential(BatchNorm(ch, device=device), nn.SiLU(),
+        self.out = nn.Sequential(BatchNorm(ch, device=device), SiLU(),
                                  ZeroConv(ch, out_channels, 3, 1,
-                                          device=device))
+                                          device=device, float32_sum=True))
         self.to(memory_format=torch.channels_last)
 
     def forward(self, x: torch.Tensor, y: torch.Tensor,
@@ -259,9 +270,10 @@ class DiffusionUNet(nn.Module):
             hs = []
             for block in self.input_blocks:
                 h = block(h, emb)
-                hs.append(h)
+                hs.append(round_to_compute(h))
             h = self.middle_block(h, emb)
             for block in self.output_blocks:
-                h = block(torch.cat([h, hs.pop()], dim=1), emb)
+                h = block(torch.cat([round_to_compute(h), hs.pop()], dim=1),
+                          emb)
             h = self.out(h)
         return h.float().permute(0, 2, 3, 1)

@@ -25,16 +25,18 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from pai_tpu_torch.ops import BatchNorm, Conv, ConvTranspose, Dropout2d
+from pai_tpu_torch.ops import (BatchNorm, Conv, ConvTranspose, Dropout2d,
+                               LeakyReLU)
 
 
 class EncoderBlock(nn.Module):
     def __init__(self, in_channels: int, features: int, norm: bool = True,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
-        layers = [nn.LeakyReLU(0.2),
+        layers = [LeakyReLU(0.2),
                   Conv(in_channels, features, kernel_size=4, stride=2,
-                       padding=1, generator=generator, device=device)]
+                       padding=1, generator=generator, device=device,
+                       float32_sum=norm)]
         if norm:
             layers.append(BatchNorm(features, device=device))
         self.encode = nn.Sequential(*layers)
@@ -50,7 +52,8 @@ class DecoderBlock(nn.Module):
         self.decode = nn.Sequential(
             nn.ReLU(),
             ConvTranspose(in_channels, features, kernel_size=4, stride=2,
-                          padding=1, generator=generator, device=device),
+                          padding=1, generator=generator, device=device,
+                          float32_sum=True),
             BatchNorm(features, device=device),
             Dropout2d(dropout, generator=generator),
         )
@@ -71,7 +74,10 @@ def dropout_for_level(level: int, mult: int, channel_mults: Sequence[int],
 class Pix2PixUnet(nn.Module):
     """``generator`` seeds the N(0, 0.02) init and the dropout masks; it must
     live on ``device``. ``dtype`` is the compute dtype: ``torch.bfloat16``
-    runs the convolutions under autocast with float32 parameters."""
+    runs the convolutions under autocast with float32 parameters, rounded
+    where the JAX module rounds under ``jit`` (``ops/layers.py``): a
+    convolution read by a BatchNorm or by the float32 tanh hands it the
+    float32 sum of its rounded product and bias."""
 
     def __init__(self, in_channels: int = 1, out_channels: int = 1,
                  channel_mults: Sequence[int] = (1, 2, 4, 8, 8, 8, 8, 8),
@@ -105,7 +111,8 @@ class Pix2PixUnet(nn.Module):
                 generator=generator, device=device))
         decoders.append(ConvTranspose(mults[0] * 64 * 2, out_channels,
                                       kernel_size=4, stride=2, padding=1,
-                                      generator=generator, device=device))
+                                      generator=generator, device=device,
+                                      float32_sum=True))
         self.decoders = nn.ModuleList(decoders)
         self.to(memory_format=torch.channels_last)
 

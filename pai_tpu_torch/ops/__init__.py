@@ -8,9 +8,12 @@ from pai_tpu_torch.ops.layers import (
     Dense,
     Dropout,
     Dropout2d,
+    LeakyReLU,
+    SiLU,
     avg_pool_2x,
     gamma_embedding,
     leaky_relu,
+    round_to_compute,
     silu,
     upsample_nearest_2x,
 )

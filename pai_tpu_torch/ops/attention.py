@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from pai_tpu_torch.kernels.flash_attention import flash_attention
+from pai_tpu_torch.ops.layers import weak_scalar
 
 # Sequences at or above this length take the flash path.
 FLASH_THRESHOLD = 4096
@@ -35,8 +36,7 @@ def _full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     product accumulates in float32 and is rounded once to v's dtype. The
     products of 16-bit values are exact in float32 (and in TF32), so they run
     as float32 matrix products."""
-    # the scale as a value of q's dtype, made on the host (no device copy)
-    scale = torch.tensor(q.shape[-1] ** -0.25, dtype=q.dtype).item()
+    scale = weak_scalar(q.shape[-1] ** -0.25, q.dtype)
     with torch.autocast(device_type=q.device.type, enabled=False):
         logits = torch.matmul((q * scale).float(),
                               (k * scale).float().transpose(-1, -2))

@@ -17,10 +17,18 @@ NCHW.
 * ``Dropout`` — elementwise dropout (the diffusion ResBlock's); ``Dropout2d``
   — whole-channel dropout. Both draw from an explicit ``torch.Generator``;
   rate 0 is the identity.
-* ``leaky_relu`` — slope 0.2; ``silu`` — ``x * sigmoid(x)``.
+* ``leaky_relu`` / ``LeakyReLU`` — slope 0.2; ``silu`` / ``SiLU`` —
+  ``x * sigmoid(x)``.
 * ``avg_pool_2x`` / ``upsample_nearest_2x`` — ``nn.AvgPool2d(2)`` and nearest
   ``nn.Upsample(scale_factor=2)`` on NCHW.
 * ``gamma_embedding`` — sinusoidal embedding of noise levels, [cos | sin].
+
+bfloat16 (``--precision bf16-mixed``: autocast, float32 parameters) rounds
+where the JAX package rounds when XLA runs it at ``dtype=bfloat16``: a
+convolution or dense product is rounded to bfloat16 before its bfloat16 bias
+is added (``_bias_after_rounding``); ``silu``, ``leaky_relu`` and
+``avg_pool_2x`` of a bfloat16 tensor round after every op XLA emits for them.
+Float32 takes one library call per layer, bias inside, as before.
 
 Two init modes, both drawing from an explicit ``torch.Generator``:
 ``"normal002"`` (the GAN families: the reference's ``init_weights``, weights
@@ -40,12 +48,38 @@ import torch
 from torch import nn
 
 
+def weak_scalar(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as JAX rounds a Python scalar (weakly
+    typed) before an op with an array of that dtype; made on the host."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
-    return torch.where(x >= 0, x, negative_slope * x)
+    """The slope is rounded to ``x``'s dtype first (0.2001953125 in bfloat16,
+    ``pai_tpu/ops/layers.py:67-68``); the product is rounded once."""
+    return nn.functional.leaky_relu(x, weak_scalar(negative_slope, x.dtype))
+
+
+class LeakyReLU(nn.LeakyReLU):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return leaky_relu(x, self.negative_slope)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.sigmoid(x)
+    """``x * sigmoid(x)``. In bfloat16 as XLA computes ``x *
+    jax.nn.sigmoid(x)`` (``pai_tpu/ops/layers.py:71-73``): the sigmoid
+    expanded to ``1 / (1 + exp(-x))``, rounded after the exp, the add, the
+    division and the product; outside autocast, which on CUDA would run the
+    exp and the division in float32."""
+    if x.dtype == torch.bfloat16:
+        with torch.autocast(x.device.type, enabled=False):
+            return x * torch.reciprocal(1 + torch.exp(-x))
+    return nn.functional.silu(x)
+
+
+class SiLU(nn.SiLU):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return silu(x)
 
 
 def _init_normal(module: nn.Module, generator: Optional[torch.Generator]
@@ -71,24 +105,78 @@ def _init_torch(module: nn.Module, generator: Optional[torch.Generator]
         module.bias.uniform_(-bound, bound, generator=generator)
 
 
+def _init_zeros(module: nn.Module) -> None:
+    """Zero weight and bias (guided_diffusion ``zero_module``)."""
+    if module.weight.is_meta:
+        return
+    with torch.no_grad():
+        module.weight.zero_()
+        module.bias.zero_()
+
+
 def _init(module: nn.Module, init_mode: str,
           generator: Optional[torch.Generator]) -> None:
     if init_mode == "torch":
         _init_torch(module, generator)
     elif init_mode == "normal002":
         _init_normal(module, generator)
+    elif init_mode == "zeros":
+        _init_zeros(module)
     else:
         raise ValueError(f"unknown init_mode '{init_mode}'")
 
 
+def bf16_autocast(x: torch.Tensor) -> bool:
+    """Whether bfloat16 autocast is on for ``x``'s device."""
+    device = x.device.type
+    return (torch.is_autocast_enabled(device)
+            and torch.get_autocast_dtype(device) == torch.bfloat16)
+
+
+def round_to_compute(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bfloat16 under bfloat16 autocast, else as it is: the
+    rounding of a sum that XLA held in float32 for a float32 reader, made
+    where a bfloat16 op reads it (see ``_bias_after_rounding``)."""
+    return x.to(torch.bfloat16) if bf16_autocast(x) else x
+
+
+def _bias_after_rounding(op, x: torch.Tensor, weight: torch.Tensor,
+                         bias: torch.Tensor, bias_shape,
+                         float32_sum: bool = False) -> torch.Tensor:
+    """``op(x, weight, bias)``, a convolution or linear map. Under bfloat16
+    autocast it rounds as the JAX layers do (``pai_tpu/ops/layers.py:111-113,
+    150-154``, flax ``nn.Dense``, ``pai_tpu/models/diffusion_unet.py:66``):
+    the product without bias is rounded to bfloat16, then the bias, rounded
+    to bfloat16, is added by a separate add. That add rounds to bfloat16
+    again, unless ``float32_sum``: where a reader casts the sum to float32
+    (a BatchNorm, a model's float32 output), XLA drops that rounding for it,
+    so the float32 sum is returned, and a bfloat16 reader rounds it
+    (``round_to_compute``). Otherwise one call with the bias inside."""
+    if not bf16_autocast(x):
+        return op(x, weight, bias)
+    y = op(x, weight, None)
+    b = bias.to(y.dtype).view(bias_shape)
+    return y.float() + b.float() if float32_sum else y + b
+
+
 class Conv(nn.Conv2d):
+    """``float32_sum``: a BatchNorm or a float32 output reads the output, so
+    under bfloat16 autocast it is the float32 sum of the rounded product and
+    bias (``_bias_after_rounding``)."""
+
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
                  stride: int = 1, padding: int = 0,
                  init_mode: str = "normal002",
-                 generator: Optional[torch.Generator] = None, device=None):
+                 generator: Optional[torch.Generator] = None, device=None,
+                 float32_sum: bool = False):
         super().__init__(in_channels, features, kernel_size, stride, padding,
                          device=device)
+        self.float32_sum = float32_sum
         _init(self, init_mode, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _bias_after_rounding(self._conv_forward, x, self.weight,
+                                    self.bias, (-1, 1, 1), self.float32_sum)
 
 
 class Dense(nn.Linear):
@@ -98,16 +186,32 @@ class Dense(nn.Linear):
         super().__init__(in_features, features, device=device)
         _init(self, init_mode, generator)
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _bias_after_rounding(nn.functional.linear, x, self.weight,
+                                    self.bias, (-1,))
+
 
 class ConvTranspose(nn.ConvTranspose2d):
-    """``out = (in - 1) * s - 2p + k``: exactly 2x for k4 s2 p1."""
+    """``out = (in - 1) * s - 2p + k``: exactly 2x for k4 s2 p1.
+    ``float32_sum`` as for ``Conv``."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 4,
                  stride: int = 2, padding: int = 1,
-                 generator: Optional[torch.Generator] = None, device=None):
+                 generator: Optional[torch.Generator] = None, device=None,
+                 float32_sum: bool = False):
         super().__init__(in_channels, features, kernel_size, stride, padding,
                          device=device)
+        self.float32_sum = float32_sum
         _init_normal(self, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        def op(x, weight, bias):
+            return nn.functional.conv_transpose2d(
+                x, weight, bias, self.stride, self.padding,
+                self.output_padding, self.groups, self.dilation)
+
+        return _bias_after_rounding(op, x, self.weight, self.bias,
+                                    (-1, 1, 1), self.float32_sum)
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -126,11 +230,16 @@ class BatchNorm(nn.BatchNorm2d):
         tokens = x.dim() == 3
         if tokens:  # (N, L, C) seen as channels_last (N, C, L, 1): no copy
             x = x.transpose(1, 2).unsqueeze(-1)
+        bf16 = x.dtype == torch.bfloat16 or bf16_autocast(x)
+        if bf16 and not self.training:
+            y = self._flax_normalize(x)
+            return y.squeeze(-1).transpose(1, 2) if tokens else y
         update = self.training and self.track_running_stats
         if update:
             old_var = self.running_var.clone()
         with torch.autocast(device_type=x.device.type, enabled=False):
-            y = super().forward(x.float()).to(x.dtype)
+            y = super().forward(x.float()).to(
+                torch.bfloat16 if bf16 else x.dtype)
         if update:
             # torch moved running_var toward v*n/(n-1) with weight m; the
             # same step toward v is (n-1)/n of that plus (1-m)/n of the old.
@@ -143,6 +252,23 @@ class BatchNorm(nn.BatchNorm2d):
             self.running_var.data.mul_((n - 1) / n).add_(old_var,
                                                          alpha=(1 - m) / n)
         return y.squeeze(-1).transpose(1, 2) if tokens else y
+
+    def _flax_normalize(self, x: torch.Tensor) -> torch.Tensor:
+        """Eval mode at a bfloat16 compute dtype: flax's ``BatchNorm`` in
+        float32 (``pai_tpu/ops/layers.py:178-188``), ``(x - mean) *
+        (rsqrt(var + eps) * scale) + bias`` from the running statistics,
+        rounded to bfloat16 once; ``x`` is bfloat16 or the float32 sum of
+        ``_bias_after_rounding``. The library's batch norm takes the
+        product in another order, and its bfloat16 output then differs from
+        the JAX package's in one value in 10^4, which the eval forward
+        spreads (PERF.md). Train mode takes the library's float32 batch
+        norm and rounds once: its cost in a training step is what an op-by-
+        op formula would add there (PERF.md)."""
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return torch.addcmul(self.bias.view(shape),
+                             x - self.running_mean.view(shape),
+                             mul.view(shape)).to(torch.bfloat16)
 
 
 class Dropout(nn.Module):
@@ -191,8 +317,16 @@ class Dropout2d(nn.Module):
 
 
 def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
-    """``nn.AvgPool2d(2)`` on NCHW."""
-    return nn.functional.avg_pool2d(x, 2)
+    """``nn.AvgPool2d(2)`` on NCHW. In bfloat16 as XLA's ``reduce_window``
+    sum in ``x.dtype`` (``pai_tpu/ops/layers.py:283-294``): the four values
+    of a window added in row-major order, rounded after each add, then
+    times 0.25 (exact)."""
+    if x.dtype != torch.bfloat16:
+        return nn.functional.avg_pool2d(x, 2)
+    h, w = x.shape[2] // 2 * 2, x.shape[3] // 2 * 2
+    s = x[:, :, 0:h:2, 0:w:2] + x[:, :, 0:h:2, 1:w:2]
+    s = s + x[:, :, 1:h:2, 0:w:2]
+    return (s + x[:, :, 1:h:2, 1:w:2]) * 0.25
 
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:

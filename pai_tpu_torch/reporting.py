@@ -80,11 +80,10 @@ def chunk_metrics(p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Everything the report keeps of one batch, as one (B, K) float32 tensor
     on the device: the prediction and the SSIM map, flattened, then per-image
     SSIM, PSNR, MSE and the per-band SSIMs. ``unpack_chunk`` splits it."""
-    per_image, full = metrics.ssim_parts(p, t)
+    per_image, full, bands = metrics.ssim_report(p, t)
     cols = [p.flatten(1), full.flatten(1), per_image[:, None],
             metrics.psnr_per_image(p, t)[:, None],
-            metrics.mse_per_image(p, t)[:, None],
-            metrics.depth_ssim_per_image(p, t)]
+            metrics.mse_per_image(p, t)[:, None], bands]
     return torch.cat(cols, dim=1)
 
 

@@ -18,13 +18,16 @@ from __future__ import annotations
 import torch
 
 from pai_tpu_torch.kernels.ssim import (
+    ssim_bands_fused,
     ssim_parts_fused,
     ssim_parts_plain,
     ssim_per_image_fused,
+    ssim_report_fused,
 )
 
 __all__ = [
-    "ssim_parts", "ssim_parts_plain", "ssim_per_image", "ssim", "psnr",
+    "ssim_parts", "ssim_parts_plain", "ssim_report", "ssim_per_image", "ssim",
+    "psnr",
     "psnr_per_image", "mse", "mse_per_image", "rmse", "depth_ssim_per_image",
     "depth_ssim",
 ]
@@ -37,6 +40,13 @@ def ssim_parts(pred, target, data_range: float = 1.0, kernel_size: int = 11,
     recompute through ``ssim_parts_plain``."""
     return ssim_parts_fused(pred, target, data_range, kernel_size, sigma,
                             k1, k2)
+
+
+def ssim_report(pred, target, num_depths: int = 16):
+    """``(per_image [N], map [N,H,W,C], bands [N, bands])``: what a report
+    keeps of SSIM, one ``ssim_map`` launch on a CUDA tensor. ``bands`` are
+    ``depth_ssim_per_image``'s."""
+    return ssim_report_fused(pred, target, num_depths)
 
 
 def ssim_per_image(pred, target, data_range: float = 1.0):
@@ -81,16 +91,12 @@ def rmse(pred, target):
 
 def depth_ssim_per_image(preds, targets, num_depths: int = 16):
     """Per-image SSIM over ``num_depths`` horizontal bands (depth axis = H)
-    -> [N, bands]. torch.chunk semantics: ceil-sized bands, short last. The
-    bands are views; the kernel reads them through their strides."""
-    h = preds.shape[1]
-    band = -(-h // num_depths)
-    cols = []
-    for start in range(0, h, band):
-        stop = min(start + band, h)
-        per_image, _ = ssim_parts(preds[:, start:stop], targets[:, start:stop])
-        cols.append(per_image)
-    return torch.stack(cols, dim=1)
+    -> [N, bands]. torch.chunk semantics: ceil-sized bands, short last; a
+    band of 10 rows or fewer raises ``ValueError``. Kernel ``ssim_scalar``
+    on a CUDA tensor: one launch for every band (each band's mean is a mean
+    over rows of the whole image's interior, ``kernels.ssim.band_interiors``);
+    the band-by-band plain version on a CPU tensor."""
+    return ssim_bands_fused(preds, targets, num_depths)
 
 
 def depth_ssim(preds, targets, num_depths: int = 16):

@@ -132,6 +132,66 @@ def test_depth_ssim_matches_jax(h, w, depths):
     _close(got, want, PER_IMAGE_TOL)
 
 
+@pytest.mark.parametrize("h,depths,interiors", [
+    (256, 16, [(16 * b + 5, 16 * b + 11) for b in range(16)]),
+    (72, 6, [(12 * b + 5, 12 * b + 7) for b in range(6)]),
+    (71, 6, [(12 * b + 5, 12 * b + 7) for b in range(5)] + [(65, 66)])])
+def test_band_interiors_are_the_bands_interior_rows(h, depths, interiors):
+    """torch.chunk's ceil-sized bands, the short last one included; a band's
+    interior is its rows but the 5 at either end."""
+    assert port_ssim.band_interiors(h, depths) == interiors
+    assert [(s + 5, e - 5) for s, e in port_ssim.band_rows(h, depths)] \
+        == interiors
+
+
+@pytest.mark.parametrize("h,depths", [(160, 16), (170, 16)])
+def test_bands_of_ten_rows_or_fewer_raise(h, depths):
+    with pytest.raises(ValueError, match="above 10"):
+        port_ssim.band_interiors(h, depths)
+    p, t = _pair((1, h, 16, 1), seed=10)
+    for fn in (tm.depth_ssim_per_image, tm.ssim_report):
+        with pytest.raises(ValueError, match="above 10"):
+            fn(torch.from_numpy(p), torch.from_numpy(t), depths)
+
+
+@pytest.mark.parametrize("h,w,depths", [(256, 32, 16), (72, 24, 6),
+                                        (71, 24, 6)])
+def test_band_ssim_is_a_mean_over_rows_of_the_whole_map(h, w, depths):
+    """What the kernels rely on: each band's SSIM, as the JAX package
+    computes it band by band, is the mean of the whole image's map over the
+    band's interior rows and the interior columns."""
+    p, t = _pair((3, h, w, 1), seed=4)
+    want = jax.jit(jm.depth_ssim_per_image, static_argnums=2)(
+        jnp.asarray(p), jnp.asarray(t), depths)
+    _, full = port_ssim.ssim_parts_plain(torch.from_numpy(p),
+                                         torch.from_numpy(t))
+    got = torch.stack([full[:, lo:hi, 5:-5].mean(dim=(1, 2, 3))
+                       for lo, hi in port_ssim.band_interiors(h, depths)],
+                      dim=1)
+    _close(got, want, PER_IMAGE_TOL)
+
+
+@pytest.mark.parametrize("h,w,depths", [(176, 24, 16), (71, 24, 6)])
+def test_ssim_report_on_cpu_tensors_is_the_jax_triple(h, w, depths):
+    """``ssim_report_fused`` on CPU tensors takes the plain version (no
+    kernel launch) and gives what ``pai_tpu`` gives: the per-image SSIM and
+    map of ``ssim_parts``, the bands of ``depth_ssim_per_image``."""
+    from pai_tpu_torch import kernels
+
+    p, t = _pair((2, h, w, 1), seed=11)
+    before = dict(kernels.launch_counts)
+    per_image, full, bands = tm.ssim_report(torch.from_numpy(p),
+                                            torch.from_numpy(t), depths)
+    assert kernels.launch_counts == before
+    want_per, want_map = jm.ssim_parts(jnp.asarray(p), jnp.asarray(t))
+    want_bands = jax.jit(jm.depth_ssim_per_image, static_argnums=2)(
+        jnp.asarray(p), jnp.asarray(t), depths)
+    assert bands.shape == want_bands.shape == (2, depths)
+    _close(per_image, want_per, PER_IMAGE_TOL)
+    _close(full, want_map, MAP_TOL)
+    _close(bands, want_bands, PER_IMAGE_TOL)
+
+
 def test_depth_ssim_std_is_unbiased():
     p, t = _pair((4, 64, 24, 1), seed=5)
     per = tm.depth_ssim_per_image(torch.from_numpy(p), torch.from_numpy(t), 4)
@@ -154,6 +214,19 @@ def test_ssim_gradient_matches_jax(fn):
     (-per_image.mean()).backward()
     np.testing.assert_allclose(pt.grad.numpy(), np.asarray(want), rtol=1e-4,
                                atol=1e-7)
+
+
+def test_depth_band_gradient_matches_jax():
+    """The bands' backward recomputes through the band-by-band plain
+    version, against jax.grad of the JAX package's bands."""
+    p, t = _pair((2, 24, 16, 1), seed=12)
+    want = jax.jit(jax.grad(lambda a: jnp.sum(jm.depth_ssim_per_image(
+        a, jnp.asarray(t), 2) * jnp.asarray([1.0, -2.0]))))(jnp.asarray(p))
+    pt = torch.from_numpy(p).requires_grad_(True)
+    bands = tm.depth_ssim_per_image(pt, torch.from_numpy(t), 2)
+    (bands * torch.tensor([1.0, -2.0])).sum().backward()
+    np.testing.assert_allclose(pt.grad.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-6)
 
 
 def test_ssim_map_gradient_matches_plain_version():

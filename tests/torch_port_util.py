@@ -168,3 +168,40 @@ def write_blob_dataset(directory, n, size, seed, write_png):
     manifest = directory / "data.yaml"
     manifest.write_text("".join(entries))
     return str(manifest)
+
+
+def bn_map(torch_mod, flax_mod):
+    """(torch member, flax path, kind) triples of a BatchNorm, for
+    ``load_flax_block``."""
+    return [(f"{torch_mod}.weight", (flax_mod, "BatchNorm_0", "scale"), "1d"),
+            (f"{torch_mod}.bias", (flax_mod, "BatchNorm_0", "bias"), "1d"),
+            (f"{torch_mod}.running_mean",
+             (flax_mod, "BatchNorm_0", "mean"), "1d"),
+            (f"{torch_mod}.running_var",
+             (flax_mod, "BatchNorm_0", "var"), "1d")]
+
+
+def conv_map(torch_mod, flax_mod, kind="conv", inner=()):
+    """The same for a convolution or dense layer (``kind`` as
+    ``jax_params._to_torch`` takes it)."""
+    return [(f"{torch_mod}.weight", (flax_mod, *inner, "kernel"), kind),
+            (f"{torch_mod}.bias", (flax_mod, *inner, "bias"), "1d")]
+
+
+def load_flax_block(module, name_map, params, stats=None):
+    """Copy a flax block's numpy leaves into a port block by (torch member,
+    flax path, kind) triples; a path whose last key is "" names the flax
+    module's leaves directly under ``params``."""
+    from pai_tpu_torch.interop import jax_params
+
+    with torch.no_grad():
+        for target, path, kind in name_map:
+            tree = stats if path[-1] in ("mean", "var") else params
+            for key in path:
+                tree = tree[key]
+            value = torch.from_numpy(jax_params._to_torch(
+                np.asarray(tree, np.float32), kind).copy())
+            if path[-1] in ("mean", "var"):
+                module.get_buffer(target).copy_(value)
+            else:
+                module.get_parameter(target).copy_(value)
