@@ -6,8 +6,9 @@
 Drives the port's main paths once each at full width — the Pix2Pix report
 (channel mults 1,2,4,8,8,8,8,8 — 54.4 M parameters, 256x256 grayscale),
 Palette sampling (the CLI-default diffusion UNet: the same mults at inner
-width 128, attention at downsample rates 8,4,2, 100-step DDPM chain) and
-Palette training (float32, and a bf16-mixed step) — through the entry points
+width 128, attention at downsample rates 8,4,2, 100-step DDPM chain),
+Palette training (float32, and a bf16-mixed step) and GAN training (Pix2Pix
+with the PatchGAN, the train CLI's default) — through the entry points
 a user calls, and holds every hand-written kernel
 against its plain PyTorch version on the card. It imports ``pai_tpu_torch`` only (no JAX),
 builds the kernels from the sources in this checkout, needs no network and
@@ -65,6 +66,18 @@ for). Phases, each printing one JSON line:
    bf16-mixed``: one forward at batch 2 and one training step at batch 4,
    timed, with the flash launches and the dtype of their operands
    (bfloat16), finite outputs and gradients.
+8. ``gan`` — GAN training at the published width through
+   ``pai_tpu_torch.main -m pix2pix --loss-type gan`` (the CLI's defaults,
+   ``--precision 32``, batch 8): 10 steps with a log row at step 10, a
+   validation over 32 pairs (one ``ssim_scalar`` launch per batch), best
+   and last slots; ``--resume`` to a second epoch (it must start at step
+   10); the report CLI on the best slot (one ``ssim_map`` launch per
+   batch); a profiled lean step (device busy time, the convolutions'
+   share, peak memory); one timed step of each other loss type, with the
+   SSIM losses' one ``ssim_scalar`` launch per lean step and the time of
+   their backward (the plain version's, as the JAX package's
+   ``custom_vjp``); a small GAN step of every loss type on the card against
+   the CPU; one bf16-mixed GAN step.
 
 Then one line ``{"kernels": [...]}`` with, per kernel, its route, source, the
 TPU kernel it replaces, its launches in phase 3, its error against the plain
@@ -2111,8 +2124,451 @@ def bf16_card_vs_cpu(device):
                        "unet_corr": BF16_CARD_CORR}}
 
 
+# GAN training (phase_gan). The full-width run: 80 pairs at batch 8 (10
+# steps; step 10 is a log row) and 32 validation pairs (4 batches), then
+# the report over the same 32 pairs from the best slot. Card vs CPU: one
+# step of a small Pix2Pix (mults 1,2,4 at 32x32, batch 2) with the PatchGAN
+# at its published widths, true float32 both, every loss type: the loss, the
+# prediction and every parameter and running statistic after the step
+# within GAN_CARD_CPU_TOL of its largest magnitude. The first Adam step
+# moves an element by g / (|g| + eps) learning rates (eps 1e-7, lr 2e-4):
+# about one whatever the gradient's size, so the parameters after it agree
+# as their gradients do, against weights and biases drawn at 0.02 and 0.1;
+# but an element whose gradient is within float noise of eps moves by a
+# noise-sensitive fraction of the learning rate. So the limit holds for the
+# elements whose gradient (on the CPU) is at least a thousandth of their
+# tensor's largest, and every element is held within two learning rates,
+# Adam's bound; a tensor whose gradient is float noise throughout (its
+# largest below a thousandth of its network's, as the biases a BatchNorm
+# follows: the Palette gradient check's rule) is held to that bound alone.
+GAN_TRAIN_IMAGES, GAN_VAL_IMAGES, GAN_BATCH = 80, 32, 8
+GAN_LOSS_TYPES = ("gan", "ssim", "psnr", "ssim+psnr", "mse")
+GAN_CARD_CPU_TOL = 1e-3
+PIX2PIX_PARAMETERS = 54_413_313
+PATCHGAN_PARAMETERS = 2_763_712
+# float32 weights and Adam's two moments of both networks (no EMA)
+GAN_SLOT_BYTES = 3 * 4 * (PIX2PIX_PARAMETERS + PATCHGAN_PARAMETERS)
+
+
+def gan_small_models(seed):
+    """A small Pix2Pix and the PatchGAN on the CPU with every parameter and
+    running statistic drawn from ``seed`` (biases too, so that no tensor is
+    at the scale of one Adam step)."""
+    from pai_tpu_torch.models import Discriminator, build_generator
+
+    gen = torch.Generator().manual_seed(seed)
+    model = build_generator("pix2pix", channel_mults=(1, 2, 4),
+                            generator=gen)
+    disc = Discriminator(generator=gen)
+    with torch.no_grad():
+        for net in (model, disc):
+            for name, tensor in net.state_dict().items():
+                if name.endswith("num_batches_tracked"):
+                    continue
+                if name.endswith(("running_var", "weight")) \
+                        and tensor.dim() == 1:
+                    tensor.uniform_(0.5, 1.5, generator=gen)
+                elif tensor.dim() == 1:
+                    tensor.normal_(0.0, 0.1, generator=gen)
+    return model, disc
+
+
+def gan_card_vs_cpu(device):
+    """One GAN step of each loss type on the card and on the CPU from the
+    same weights and batch (true float32 both): loss, d_loss, prediction,
+    parameters and running statistics after the step, and the launches."""
+    import copy
+
+    from pai_tpu_torch import kernels
+    from pai_tpu_torch.train import steps as steps_lib
+    from pai_tpu_torch.train.state import GAN_LR
+
+    rng = np.random.default_rng(11)
+    x = rng.uniform(-1, 1, (2, 32, 32, 1)).astype(np.float32)
+    y = np.where(-0.8 * x + rng.normal(0, 0.2, x.shape) > 0, 1.0,
+                 -1.0).astype(np.float32)
+    out = {}
+    for loss_type in GAN_LOSS_TYPES:
+        cpu_nets = gan_small_models(3)
+        results = {}
+        for where in ("cuda", "cpu"):
+            nets = [copy.deepcopy(n).to(where).to(
+                memory_format=torch.channels_last) for n in cpu_nets]
+            preds = []
+            nets[0].register_forward_hook(
+                lambda m, a, o: preds.append(o.detach().cpu()))
+            state = steps_lib.init_gan_state(nets[0], nets[1], loss_type,
+                                             use_ema=False)
+            step = steps_lib.make_gan_train_step(nets[0], nets[1], loss_type)
+            before = dict(kernels.launch_counts)
+            _, metrics = step(state, torch.from_numpy(x).to(where),
+                              torch.from_numpy(y).to(where))
+            launched = {k: kernels.launch_counts[k] - before[k]
+                        for k in before}
+            tensors, grads = {}, {}
+            for tag, net, opt in (("g", nets[0], state.g_opt),
+                                  ("d", nets[1], state.d_opt)):
+                tensors.update({f"{tag}.{k}": v.detach().cpu()
+                                for k, v in net.state_dict().items()})
+                # after one step Adam's first moment is half the gradient
+                grads[tag] = {f"{tag}.{k}": opt.state[p]["exp_avg"].abs()
+                              .cpu() for k, p in net.named_parameters()} \
+                    if opt else {}
+            results[where] = ({k: float(v) for k, v in metrics.items()},
+                              preds[0], tensors, launched, grads)
+        card, cpu = results["cuda"], results["cpu"]
+        errs = {k: abs(card[0][k] - cpu[0][k]) / abs(cpu[0][k])
+                for k in cpu[0]}
+        errs["prediction"] = float((card[1] - cpu[1]).abs().max()
+                                   / cpu[1].abs().max())
+        grads = {k: v for net in cpu[4].values() for k, v in net.items()}
+        noise = {name for net in cpu[4].values() if net
+                 for name, g in net.items()
+                 if g.max() < 1e-3 * max(v.max() for v in net.values())}
+        worst, worst_name = 0.0, None
+        for name, want in cpu[2].items():
+            if name.endswith("num_batches_tracked"):
+                continue
+            diff = (card[2][name] - want).abs()
+            if name in grads:
+                check(float(diff.max()) <= 2 * GAN_LR, f"GAN step "
+                      f"{loss_type}, card vs CPU: {name} {float(diff.max())}"
+                      " > two learning rates")
+                if name in noise:
+                    continue
+                diff = diff[grads[name] >= 1e-3 * grads[name].max()]
+            err = float(diff.max() / want.abs().max())
+            if err > worst:
+                worst, worst_name = err, name
+        errs["tensors"] = worst
+        for key, err in errs.items():
+            check(err <= GAN_CARD_CPU_TOL, f"GAN step {loss_type}, card vs "
+                  f"CPU: {key} {err} > {GAN_CARD_CPU_TOL} ({worst_name})")
+        check(not any(cpu[3].values()), "the CPU GAN step launched a kernel")
+        # the SSIM losses' forward and train_ssim; nothing else
+        want = 2 if loss_type in ("ssim", "ssim+psnr") else 1
+        check(card[3]["ssim_scalar"] == want and card[3]["ssim_map"] == 0,
+              f"GAN step {loss_type} on the card launched {card[3]}")
+        out[loss_type] = {"max_rel_err": errs, "worst_tensor": worst_name,
+                          "float_noise_gradients": sorted(noise),
+                          "loss_cuda": card[0]["loss"],
+                          "loss_cpu": cpu[0]["loss"]}
+    return out
+
+
+def gan_loss_step(device, model, loss_type, x, y):
+    """One timed lean step of a loss type other than ``gan`` on the
+    full-width generator (its own Adam state), and for the SSIM losses the
+    ``ssim_scalar`` launches of a lean step and the time of the loss's
+    backward, which recomputes through the plain version."""
+    from pai_tpu_torch import kernels
+    from pai_tpu_torch.train import steps as steps_lib
+    from pai_tpu_torch.train.losses import generator_loss
+
+    state = steps_lib.init_gan_state(model, None, loss_type, use_ema=False)
+    step = steps_lib.make_gan_train_step(model, None, loss_type,
+                                         compute_metrics=False)
+    state, metrics = step(state, x, y)  # warm: Adam's state exists after
+    torch.cuda.synchronize()
+    before = dict(kernels.launch_counts)
+    ms = step_event_ms(lambda: step(state, x, y), 1)
+    launched = {k: kernels.launch_counts[k] - before[k] for k in before}
+    check(np.isfinite(float(metrics["loss"])), f"{loss_type} loss")
+    entry = {"step_ms": ms, "launches_per_lean_step": launched,
+             "loss": float(metrics["loss"])}
+    if loss_type in ("ssim", "ssim+psnr"):
+        check(launched["ssim_scalar"] == 1,
+              f"a lean {loss_type} step launched ssim_scalar "
+              f"{launched['ssim_scalar']} times, expected 1")
+        with torch.no_grad():
+            pred = model.train()(x)
+        leaf = pred.clone().requires_grad_(True)
+        loss = generator_loss(loss_type, leaf, y)
+
+        def backward():
+            torch.autograd.grad(loss, leaf, retain_graph=True)
+
+        backward()
+        entry["loss_backward_ms"] = step_event_ms(backward, 10)
+        entry["loss_forward_ms"] = step_event_ms(
+            lambda: generator_loss(loss_type, leaf.detach(), y), 10)
+    return entry
+
+
+def phase_gan(device, workdir):
+    """``python -m pai_tpu_torch.main smoke -m pix2pix --loss-type gan
+    --batch-size 8 --epochs 1 --val-epochs 1 --precision 32 --device cuda``
+    in this process at the published width (Pix2Pix mults 1,2,4,8,8,8,8,8
+    and the PatchGAN): 10 steps, one validation, best and last slots; then
+    ``--resume`` to a second epoch, the report CLI on the best slot, a step
+    of each other loss type, a GAN step card vs CPU for every loss type, and
+    a bf16-mixed step."""
+    import gc
+
+    from pai_tpu_torch import kernels, report
+    from pai_tpu_torch import main as train_main
+    from pai_tpu_torch.config import apply_precision_policy
+    from pai_tpu_torch.data import BatchLoader, ImageDataset
+    from pai_tpu_torch.models import Discriminator, build_generator
+    from pai_tpu_torch.train import loop
+    from pai_tpu_torch.train import steps as steps_lib
+    from pai_tpu_torch.utils import checkpoint as ckpt_lib
+    from pai_tpu_torch.utils.flops import parameter_count
+
+    free = shutil.disk_usage(workdir).free
+    need = 4 * GAN_SLOT_BYTES + 10 ** 9
+    check(free >= need, f"{free / 1e9:.1f} GB free under {workdir}: the GAN "
+          f"phase needs {need / 1e9:.1f} GB")
+    train = write_pairs(os.path.join(workdir, "train"), GAN_TRAIN_IMAGES, 3)
+    val = write_pairs(os.path.join(workdir, "val"), GAN_VAL_IMAGES, 4)
+    logs, ckpts = (os.path.join(workdir, d) for d in ("glogs", "gckpt"))
+    argv = ["smoke", "-d", train, "-vd", val, "-m", "pix2pix", "--loss-type",
+            "gan", "--batch-size", str(GAN_BATCH), "--val-epochs", "1",
+            "--precision", "32", "--device", "cuda", "--log-dir", logs,
+            "--ckpt-dir", ckpts]
+
+    steps, saves, validations, captured = [], [], [], {}
+    real_make = steps_lib.make_gan_train_step
+    real_write = ckpt_lib._write_slot
+    real_validate = loop.Trainer.validate
+
+    def instrumented(*args, **kwargs):
+        step = real_make(*args, **kwargs)
+
+        def timed(state, x, y):
+            torch.cuda.synchronize()
+            before = dict(kernels.launch_counts)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            first = state.step
+            host = time.perf_counter()
+            start.record()
+            state, metrics = step(state, x, y)
+            enqueue_ms = (time.perf_counter() - host) * 1e3
+            end.record()
+            torch.cuda.synchronize()
+            captured["state"] = state
+            steps.append({"step": first, "ms": start.elapsed_time(end),
+                          "enqueue_ms": enqueue_ms,
+                          "log_row": "train_ssim" in metrics,
+                          "loss": float(metrics["loss"]),
+                          "d_loss": float(metrics["d_loss"]),
+                          "launches": {k: kernels.launch_counts[k] - before[k]
+                                       for k in before}})
+            return state, metrics
+        return timed
+
+    def timed_write(slot_dir, flat, meta):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = real_write(slot_dir, flat, meta)
+        saves.append({"slot": os.path.basename(slot_dir),
+                      "seconds": time.perf_counter() - start,
+                      "bytes": os.path.getsize(os.path.join(slot_dir,
+                                                            "state.pt"))})
+        return out
+
+    def timed_validate(self, state, epoch):
+        torch.cuda.synchronize()
+        before = dict(kernels.launch_counts)
+        start = time.perf_counter()
+        out = real_validate(self, state, epoch)
+        torch.cuda.synchronize()
+        validations.append({"seconds": time.perf_counter() - start,
+                            "launches": {k: kernels.launch_counts[k]
+                                         - before[k] for k in before}})
+        return out
+
+    steps_lib.make_gan_train_step = instrumented
+    ckpt_lib._write_slot = timed_write
+    loop.Trainer.validate = timed_validate
+    try:
+        # ---- the main path, counted ----------------------------------
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        start = time.perf_counter()
+        summary = train_main.main(argv + ["--epochs", "1"])
+        torch.cuda.synchronize()
+        fit_seconds = time.perf_counter() - start
+        launches = dict(kernels.launch_counts)
+        peak_fit = torch.cuda.max_memory_allocated()
+        # ---- end of the counted window -------------------------------
+        first_run = list(steps)
+        steps.clear()
+        resumed = train_main.main(argv + ["--epochs", "2", "--resume"])
+    finally:
+        steps_lib.make_gan_train_step = real_make
+        ckpt_lib._write_slot = real_write
+        loop.Trainer.validate = real_validate
+
+    n_steps = GAN_TRAIN_IMAGES // GAN_BATCH
+    n_val = GAN_VAL_IMAGES // GAN_BATCH
+    check(summary["steps"] == n_steps and len(first_run) == n_steps,
+          f"trained {summary['steps']} steps, expected {n_steps}")
+    for entry in first_run:
+        want = 1 if entry["log_row"] else 0  # train_ssim at a log row
+        check(entry["launches"]["ssim_scalar"] == want
+              and entry["launches"]["ssim_map"] == 0,
+              f"step {entry['step'] + 1} launched {entry['launches']}")
+        check(np.isfinite(entry["loss"]) and np.isfinite(entry["d_loss"]),
+              f"step {entry['step'] + 1} losses not finite")
+    check([e["log_row"] for e in first_run] == [False] * 9 + [True],
+          "the log row is not step 10")
+    check(validations[0]["launches"]["ssim_scalar"] == n_val,
+          f"validation launched {validations[0]['launches']}, expected "
+          f"{n_val} ssim_scalar (one per batch)")
+    check(launches["ssim_scalar"] == n_val + 1,
+          f"ssim_scalar launched {launches['ssim_scalar']} times on the GAN "
+          f"path, expected {n_val + 1}")
+    check(all(np.isfinite(summary[k]) for k in ("val_ssim", "val_psnr",
+                                                  "val_rmse")),
+          f"validation metrics: {summary}")
+    slots = sorted(os.listdir(os.path.join(ckpts, "smoke")))
+    check(slots == ["best", "last"], f"checkpoint slots {slots}")
+    check([s["slot"] for s in saves[:3]] == ["best", "last", "last"],
+          f"saves {saves}")
+    rows = open(os.path.join(logs, "smoke", "version_0", "metrics.csv")
+                ).read().splitlines()
+    check(rows[0] == "epoch,step,loss,d_loss,train_ssim,train_psnr,"
+          "train_rmse,val_ssim,val_psnr,val_rmse", f"metrics.csv {rows[0]}")
+    check([e["step"] for e in steps] == list(range(n_steps, 2 * n_steps))
+          and resumed["steps"] == 2 * n_steps,
+          f"--resume ran steps {[e['step'] for e in steps]}, summary "
+          f"{resumed['steps']}")
+
+    # the best slot served by the report CLI (its launches gated as the
+    # report phase gates them)
+    best = os.path.join(ckpts, "smoke", "best")
+    reports_dir = os.path.join(workdir, "greports")
+    before = dict(kernels.launch_counts)
+    start = time.perf_counter()
+    report.main(["gan", "-c", best, "-d", val, "-m", "pix2pix", "-bs",
+                 str(GAN_BATCH), "--device", "cuda", "--reports-dir",
+                 reports_dir])
+    torch.cuda.synchronize()
+    report_seconds = time.perf_counter() - start
+    report_launches = {k: kernels.launch_counts[k] - before[k]
+                       for k in before}
+    check(report_launches["ssim_map"] == SSIM_MAP_LAUNCHES_PER_BATCH * n_val,
+          f"the GAN slot's report launched {report_launches}")
+    rdir = os.path.join(reports_dir, "gan")
+    for name in ("stats.txt", "depth_ssim.csv", "ssim_per_image.csv",
+                 "psnr_per_image.csv", "mse_per_image.csv"):
+        check(os.path.exists(os.path.join(rdir, name)), f"report {name}")
+    outputs = os.listdir(os.path.join(rdir, "outputs"))
+    check(len(outputs) == GAN_VAL_IMAGES, f"report outputs {len(outputs)}")
+    best_ssim = read_csv_column(os.path.join(rdir, "ssim_per_image.csv"),
+                                "image,ssim")
+    check(np.isfinite(best_ssim).all(), "report SSIM not finite")
+
+    # where the device time of a warm step goes, and a step's peak memory
+    state = captured.pop("state")
+    loader = BatchLoader(ImageDataset(train, SIZE), GAN_BATCH, shuffle=True,
+                         pad_mode="cycle", device="cuda")
+    batch = next(iter(loader))
+    loader.close()
+    lean = real_make(state.generator, state.discriminator, "gan",
+                     compute_metrics=False)
+    lean(state, batch.x, batch.y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events, busy_ms, span_ms = device_profile(
+        lambda: lean(state, batch.x, batch.y), calls=2)
+    peak_step = torch.cuda.max_memory_allocated()
+    step_ms = step_event_ms(lambda: lean(state, batch.x, batch.y), 5)
+    host = time.perf_counter()
+    lean(state, batch.x, batch.y)
+    enqueue_ms = (time.perf_counter() - host) * 1e3
+    torch.cuda.synchronize()
+    conv = re.compile(r"conv|cudnn|sm90_|sm80_|xmma|implicit_gemm|wgrad|"
+                      r"dgrad|fprop|gemm|fft|nhwc", re.I)
+    conv_ms = sum(us for key, us in events.items() if conv.search(key)) / 1e3
+    top_events = sorted(events.items(), key=lambda kv: -kv[1])[:12]
+    n_g = parameter_count(state.generator)
+    n_d = parameter_count(state.discriminator)
+    check(n_g == PIX2PIX_PARAMETERS and n_d == PATCHGAN_PARAMETERS,
+          f"parameters {n_g} + {n_d}")
+    x, y = batch.x, batch.y
+    del state, lean, captured
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one timed step of each other loss type on the published width
+    gen = torch.Generator(device=device).manual_seed(7)
+    others = {}
+    for loss_type in GAN_LOSS_TYPES[1:]:
+        model = build_generator("pix2pix", channel_mults=(1, 2, 4, 8, 8, 8,
+                                                          8, 8),
+                                generator=gen, device=device)
+        others[loss_type] = gan_loss_step(device, model, loss_type, x, y)
+        del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    card_cpu = gan_card_vs_cpu(device)
+
+    # one bf16-mixed GAN step at the published width
+    apply_precision_policy("bf16-mixed")
+    try:
+        model = build_generator("pix2pix", channel_mults=(1, 2, 4, 8, 8, 8,
+                                                          8, 8),
+                                dtype=torch.bfloat16, generator=gen,
+                                device=device)
+        disc = Discriminator(dtype=torch.bfloat16, generator=gen,
+                             device=device)
+        state = steps_lib.init_gan_state(model, disc, "gan", use_ema=False)
+        step = steps_lib.make_gan_train_step(model, disc, "gan",
+                                             compute_metrics=False)
+        state, metrics = step(state, x, y)
+        _, bf16_busy, _ = device_profile(lambda: step(state, x, y), calls=1)
+        bf16_ms = step_event_ms(lambda: step(state, x, y), 3)
+        state, metrics = step(state, x, y)
+        check(np.isfinite(float(metrics["loss"]))
+              and np.isfinite(float(metrics["d_loss"])),
+              f"bf16-mixed GAN step losses {metrics}")
+    finally:
+        apply_precision_policy("32")
+    del state, step, model, disc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    train_ms = [e["ms"] for e in first_run]
+    emit({"phase": "gan", "images": GAN_TRAIN_IMAGES,
+          "val_images": GAN_VAL_IMAGES, "batch_size": GAN_BATCH,
+          "steps": n_steps, "channel_mults": FULL_MULTS,
+          "parameters": {"generator": n_g, "discriminator": n_d},
+          "fit_seconds": fit_seconds, "step_ms": train_ms,
+          "step_ms_median_warm": statistics.median(train_ms[1:]),
+          "step_enqueue_ms": [e["enqueue_ms"] for e in first_run],
+          "images_per_second_training": GAN_BATCH * len(train_ms[1:])
+              / (sum(train_ms[1:]) / 1e3),
+          "launches_per_step": [e["launches"] for e in first_run],
+          "validation": validations, "checkpoint_saves": saves,
+          "max_memory_allocated_bytes_fit": peak_fit,
+          "max_memory_allocated_bytes_step": peak_step,
+          "losses": [e["loss"] for e in first_run],
+          "d_losses": [e["d_loss"] for e in first_run],
+          "resumed_steps": [e["step"] for e in steps],
+          "lean_step_ms": step_ms, "lean_step_enqueue_ms": enqueue_ms,
+          "lean_step_device_ms": busy_ms, "lean_step_device_span_ms":
+              span_ms, "lean_step_conv_device_ms": conv_ms,
+          "lean_step_conv_share": conv_ms / busy_ms if busy_ms else None,
+          "step_top_device_events_us": [[name[:80], us]
+                                        for name, us in top_events],
+          "report_seconds": report_seconds,
+          "report_launches": report_launches,
+          "report_mean_ssim": float(best_ssim.mean()),
+          "other_losses": others, "card_vs_cpu": card_cpu,
+          "card_vs_cpu_limit": GAN_CARD_CPU_TOL,
+          "bf16_mixed_step_ms": bf16_ms,
+          "bf16_mixed_step_device_ms": bf16_busy,
+          "launches": launches, "summary": summary})
+    return launches
+
+
 def kernels_line(cases, report_batch, launches, flash_cases,
-                 palette_launches, bwd_cases, train_launches):
+                 palette_launches, bwd_cases, train_launches, gan_launches):
     described = {
         "ssim_map": ("pai_tpu_torch/kernels/csrc/ssim.cu",
                      "pai_tpu/kernels/ssim_pallas.py:137"),
@@ -2143,6 +2599,8 @@ def kernels_line(cases, report_batch, launches, flash_cases,
                 for e in cases[name][name != "ssim_map":]]})
         if name == "ssim_map":
             out[-1]["launches_palette_path"] = palette_launches[name]
+        else:  # validation batches and log rows of GAN training
+            out[-1]["launches_gan_training_path"] = gan_launches[name]
     main = flash_cases[0]  # (2,4,16384,64): the longer of the Palette path's
     out.append({
         "name": "flash_fwd", "route": "cuda",
@@ -2247,16 +2705,21 @@ def main():
         train_launches = timed("train", phase_train, device, workdir)
     with tempfile.TemporaryDirectory(prefix="pai_smoke_bf16_") as workdir:
         timed("bf16", phase_bf16, device, workdir)
+    with tempfile.TemporaryDirectory(prefix="pai_smoke_gan_") as workdir:
+        gan_launches = timed("gan", phase_gan, device, workdir)
     for name in ("ssim_map", "ssim_scalar"):
         check(launches[name] > 0,
               f"kernel {name} was not launched on the Pix2Pix path")
     for name in ("flash_fwd", "ssim_map"):
         check(palette_launches[name] > 0,
               f"kernel {name} was not launched on the Palette path")
+    check(gan_launches["ssim_scalar"] > 0,
+          "kernel ssim_scalar was not launched on the GAN training path")
 
     emit({"phase": "seconds", **seconds})
     emit(kernels_line(cases, report_batch, launches, flash_cases,
-                      palette_launches, bwd_cases, train_launches))
+                      palette_launches, bwd_cases, train_launches,
+                      gan_launches))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -4,16 +4,16 @@ of ``pai_tpu/api.py``.
     model = Pix2Pix.load_from_checkpoint("checkpoints/run1/best")
     pred = model.predict(x)                      # NHWC in [-1, 1]
 
-    model = Palette(channel_mults=(1, 2, 4, 8, 8, 8, 8, 8),
-                    attention_res=(8, 4, 2), dropout=0.0)
+    model = Pix2Pix(loss_type="gan")
     summary = model.fit("run1", "train.yaml", "val.yaml", epochs=10)
 
 The five class names and their constructor vocabulary are those of the JAX
-package. Ported so far: ``Pix2Pix`` and ``Palette`` with
+package. Ported so far: ``Pix2Pix`` and ``Palette`` with ``fit`` (train
+with ``train.loop.Trainer`` and adopt the run's ``last`` weights),
 ``load_from_checkpoint`` (an evaluation slot or a training slot) and
-``predict``/``__call__`` (Palette's runs the 100-step DDPM chain), and
-``Palette.fit``. ``Pix2Pix.fit`` and the other three classes raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+``predict``/``__call__`` (Palette's runs the 100-step DDPM chain). The other
+three classes raise ``NotImplementedError`` naming the ROADMAP item that
+brings them.
 """
 
 from __future__ import annotations
@@ -31,7 +31,6 @@ class _Experiment:
 
     model_name: str = ""
     _roadmap_item: Optional[str] = None  # set on classes not ported yet
-    _fit_roadmap_item = "item 3 (GAN training)"
 
     def __init__(self, in_channels: int = 1, out_channels: int = 1,
                  channel_mults: Sequence[int] = (1, 2, 4, 8, 8, 8, 8, 8),
@@ -72,9 +71,22 @@ class _Experiment:
     # -- training -------------------------------------------------------
     def fit(self, name: str, data: str, val_data: Optional[str] = None,
             **overrides) -> Dict[str, float]:
-        raise NotImplementedError(
-            "training is not ported to pai_tpu_torch yet: ROADMAP.md Queue A "
-            f"{self._fit_roadmap_item}")
+        """Train with ``train.loop.Trainer`` (``overrides`` are train-CLI
+        hparams, e.g. ``epochs``, ``batch_size``, ``ckpt_dir``; they become
+        part of this model's configuration) and adopt the weights of the
+        run's ``last`` slot."""
+        from pai_tpu_torch.restore import rebuild_eval_model
+        from pai_tpu_torch.train.loop import Trainer
+
+        self.hparams.update(overrides)
+        h = dict(self.hparams, name=name, data=str(data),
+                 val_data=str(val_data) if val_data else None,
+                 device=str(self.device))
+        trainer = Trainer(h)
+        summary = trainer.fit()
+        state_dict, _ = trainer.ckpt.restore("last")
+        self._module, _ = rebuild_eval_model(state_dict, h, self.device)
+        return summary
 
     @classmethod
     def load_from_checkpoint(cls, path: str,
@@ -146,24 +158,6 @@ class Palette(_Experiment):
         super().__init__(in_channels, out_channels, channel_mults,
                          attention_res, dropout, "mse", schedule_type,
                          learn_var, precision, image_size, device=device)
-
-    def fit(self, name: str, data: str, val_data: Optional[str] = None,
-            **overrides) -> Dict[str, float]:
-        """Train with ``train.loop.Trainer`` (``overrides`` are train-CLI
-        hparams, e.g. ``epochs``, ``batch_size``, ``ckpt_dir``) and adopt
-        the weights of the run's ``last`` slot."""
-        from pai_tpu_torch.restore import rebuild_eval_model
-        from pai_tpu_torch.train.loop import Trainer
-
-        self.hparams.update(overrides)
-        h = dict(self.hparams, name=name, data=str(data),
-                 val_data=str(val_data) if val_data else None,
-                 device=str(self.device))
-        trainer = Trainer(h)
-        summary = trainer.fit()
-        state_dict, _ = trainer.ckpt.restore("last")
-        self._module, _ = rebuild_eval_model(state_dict, h, self.device)
-        return summary
 
     def predict(self, x, generator: Optional[torch.Generator] = None,
                 output_process: bool = False):

@@ -14,8 +14,9 @@ names and layouts. This module maps one to the other on numpy arrays:
   ``num_batches_tracked``, which torch's BatchNorm owns and JAX does not).
 
 The trees are taken and returned as nested dicts of numpy arrays (anything
-``np.asarray`` accepts), so this module imports no JAX. Pix2Pix and Palette
-(the guided_diffusion UNet, whose block numbering is recomputed from
+``np.asarray`` accepts), so this module imports no JAX. Pix2Pix, the PatchGAN
+(``model_name="discriminator"``; no ``batch_stats``) and Palette (the
+guided_diffusion UNet, whose block numbering is recomputed from
 ``channel_mults`` and ``attention_res``) so far; each later slice adds its
 family's name map here.
 """
@@ -127,6 +128,33 @@ def _pix2pix_path(name: str, n_levels: int
     return tree, (top, "BatchNorm_0", "BatchNorm_0", _BN_LEAF_INV[leaf]), "1d"
 
 
+def _discriminator_name(path: Tuple[str, ...]) -> Tuple[str, str]:
+    """flax path -> (torch name, tensor kind) of the PatchGAN:
+    ``DiscriminatorBlock_i/Conv_0`` is ``discriminator.i.block.0``, the bare
+    head ``Conv_0`` is ``discriminator.4`` (no bias)."""
+    top, leaf = path[0], path[-1]
+    if top.startswith("DiscriminatorBlock_"):
+        index = top.rsplit("_", 1)[1]
+        return _conv_name(f"discriminator.{index}.block.0", leaf, "conv")
+    if top == "Conv_0" and leaf == "kernel":
+        return "discriminator.4.weight", "conv"
+    raise KeyError(f"not a Discriminator parameter path: {path}")
+
+
+def _discriminator_path(name: str) -> Tuple[str, Tuple[str, ...], str]:
+    """torch name -> (tree, flax path, tensor kind); the inverse of
+    ``_discriminator_name``."""
+    parts = name.split(".")
+    kind = "conv" if parts[-1] == "weight" else "1d"
+    leaf = "kernel" if parts[-1] == "weight" else "bias"
+    if parts[:2] == ["discriminator", "4"] and leaf == "kernel":
+        return "params", ("Conv_0", "kernel"), kind
+    if parts[0] == "discriminator" and parts[2:4] == ["block", "0"]:
+        return "params", (f"DiscriminatorBlock_{parts[1]}", "Conv_0",
+                          leaf), kind
+    raise KeyError(f"not a Discriminator tensor name: {name}")
+
+
 # --------------------------------------------------------------------------
 # Palette: the guided_diffusion UNet
 # --------------------------------------------------------------------------
@@ -236,6 +264,8 @@ def _mappers(model_name: str, hparams: Mapping
         n_levels = len(parse_int_list(hparams["channel_mults"]))
         return (lambda path: _pix2pix_name(path, n_levels),
                 lambda name: _pix2pix_path(name, n_levels))
+    if model_name == "discriminator":
+        return _discriminator_name, _discriminator_path
     if model_name == "palette":
         by_path, by_name = _palette_tables(hparams)
 

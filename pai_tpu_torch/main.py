@@ -2,18 +2,22 @@
 defaults and choices verbatim) plus ``--device``.
 
 Usage:
-    python -m pai_tpu_torch.main <name> -d train.yaml -vd val.yaml -m palette
+    python -m pai_tpu_torch.main <name> -d train.yaml -vd val.yaml
+        [-m pix2pix] [--loss-type gan|ssim|psnr|ssim+psnr|mse]
 
-Ported: ``-m palette`` (DDPM training, validation with the 100-step chain,
-best/last checkpoints on validation SSIM). Another model raises
-``NotImplementedError`` (ROADMAP.md Queue A item 3), as do ``--tp``/``--sp``
-other than 1 and ``--fsdp`` (item 7). Runs on the card unless
-``--device cpu`` is given.
+Ported: ``-m pix2pix`` (the default; the five losses, ``gan`` with the
+PatchGAN) and ``-m palette`` (DDPM training, validation with the 100-step
+chain), validated and checkpointed (best/last) on validation SSIM. Another
+model raises ``NotImplementedError`` (ROADMAP.md Queue A item 5), as do
+``--tp``/``--sp`` other than 1 and ``--fsdp`` (item 7). Runs on the card
+unless ``--device cpu`` is given.
 """
 
 import argparse
 import pathlib
 from argparse import ArgumentParser
+
+from pai_tpu_torch.train.losses import LOSS_TYPES
 
 MODEL_CHOICES = [
     "pix2pix",
@@ -54,8 +58,7 @@ def build_parser() -> ArgumentParser:
                              "be used, if the model supports it. Should be "
                              "comma-separated powers of 2.")
     parser.add_argument("--dropout", default=0.0, type=float)
-    parser.add_argument("--loss-type", default="gan",
-                        choices=["gan", "ssim", "psnr", "ssim+psnr", "mse"])
+    parser.add_argument("--loss-type", default="gan", choices=LOSS_TYPES)
     parser.add_argument("--schedule-type", default="linear",
                         choices=["linear", "cosine"])
     parser.add_argument("--learn-variance", default=False,

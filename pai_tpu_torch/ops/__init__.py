@@ -8,6 +8,7 @@ from pai_tpu_torch.ops.layers import (
     Dense,
     Dropout,
     Dropout2d,
+    InstanceNorm,
     LeakyReLU,
     SiLU,
     avg_pool_2x,

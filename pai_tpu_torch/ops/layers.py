@@ -14,6 +14,9 @@ NCHW.
   tensors ``(N, L, C)`` (the reference's ``BatchNorm1d``), normalising every
   axis but the channels. The running variance follows the JAX package (the
   biased batch variance), not torch's unbiased update.
+* ``InstanceNorm`` — ``nn.InstanceNorm2d`` with torch's defaults (no affine,
+  no running statistics, eps 1e-5), in float32 and cast back; the PatchGAN's
+  optional norm.
 * ``Dropout`` — elementwise dropout (the diffusion ResBlock's); ``Dropout2d``
   — whole-channel dropout. Both draw from an explicit ``torch.Generator``;
   rate 0 is the identity.
@@ -35,8 +38,8 @@ Two init modes, both drawing from an explicit ``torch.Generator``:
 N(0, 0.02), zero biases — zero bias is the JAX package's documented deviation,
 kept) and ``"torch"`` (the diffusion UNet, which the reference never
 re-initialises: weight and bias both U(+-1/sqrt(fan_in))). The remaining
-layers of the JAX module (InstanceNorm, LayerNorm, max_pool_2x) arrive with
-the slices that use them.
+layers of the JAX module (LayerNorm, max_pool_2x) arrive with the slices that
+use them.
 """
 
 from __future__ import annotations
@@ -84,13 +87,14 @@ class SiLU(nn.SiLU):
 
 def _init_normal(module: nn.Module, generator: Optional[torch.Generator]
                  ) -> None:
-    """N(0, 0.02) weight, zero bias. A module on the ``meta`` device has no
-    storage and is left alone."""
+    """N(0, 0.02) weight, zero bias (where there is one). A module on the
+    ``meta`` device has no storage and is left alone."""
     if module.weight.is_meta:
         return
     with torch.no_grad():
         module.weight.normal_(0.0, 0.02, generator=generator)
-        module.bias.zero_()
+        if module.bias is not None:
+            module.bias.zero_()
 
 
 def _init_torch(module: nn.Module, generator: Optional[torch.Generator]
@@ -152,7 +156,7 @@ def _bias_after_rounding(op, x: torch.Tensor, weight: torch.Tensor,
     (a BatchNorm, a model's float32 output), XLA drops that rounding for it,
     so the float32 sum is returned, and a bfloat16 reader rounds it
     (``round_to_compute``). Otherwise one call with the bias inside."""
-    if not bf16_autocast(x):
+    if not bf16_autocast(x) or bias is None:
         return op(x, weight, bias)
     y = op(x, weight, None)
     b = bias.to(y.dtype).view(bias_shape)
@@ -162,15 +166,16 @@ def _bias_after_rounding(op, x: torch.Tensor, weight: torch.Tensor,
 class Conv(nn.Conv2d):
     """``float32_sum``: a BatchNorm or a float32 output reads the output, so
     under bfloat16 autocast it is the float32 sum of the rounded product and
-    bias (``_bias_after_rounding``)."""
+    bias (``_bias_after_rounding``). ``bias=False``: no bias (the PatchGAN's
+    head)."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
                  stride: int = 1, padding: int = 0,
                  init_mode: str = "normal002",
                  generator: Optional[torch.Generator] = None, device=None,
-                 float32_sum: bool = False):
+                 float32_sum: bool = False, bias: bool = True):
         super().__init__(in_channels, features, kernel_size, stride, padding,
-                         device=device)
+                         bias=bias, device=device)
         self.float32_sum = float32_sum
         _init(self, init_mode, generator)
 
@@ -231,6 +236,9 @@ class BatchNorm(nn.BatchNorm2d):
         if tokens:  # (N, L, C) seen as channels_last (N, C, L, 1): no copy
             x = x.transpose(1, 2).unsqueeze(-1)
         bf16 = x.dtype == torch.bfloat16 or bf16_autocast(x)
+        if self.training and x.numel() == x.shape[1]:
+            y = self._one_value_per_channel(x, bf16)
+            return y.squeeze(-1).transpose(1, 2) if tokens else y
         if bf16 and not self.training:
             y = self._flax_normalize(x)
             return y.squeeze(-1).transpose(1, 2) if tokens else y
@@ -253,6 +261,30 @@ class BatchNorm(nn.BatchNorm2d):
                                                          alpha=(1 - m) / n)
         return y.squeeze(-1).transpose(1, 2) if tokens else y
 
+    def _one_value_per_channel(self, x: torch.Tensor, bf16: bool
+                               ) -> torch.Tensor:
+        """Train mode over one value per channel (N x H x W == 1), where
+        torch's batch norm raises and flax's normalises: the batch variance
+        is 0, so the output is the bias (``x`` minus its own mean, times
+        ``scale / sqrt(eps)``, plus the bias: no gradient reaches ``x`` or
+        the scale, as in flax), the running mean moves toward ``x`` and the
+        running variance toward 0."""
+        shape = (1, -1, 1, 1)
+        with torch.autocast(device_type=x.device.type, enabled=False):
+            x32 = x.float()
+            mul = self.weight * (1.0 / math.sqrt(self.eps))
+            y = torch.addcmul(self.bias.view(shape), x32 - x32,
+                              mul.view(shape))
+        if self.track_running_stats:
+            m = self.momentum if self.momentum is not None \
+                else 1.0 / float(self.num_batches_tracked + 1)
+            with torch.no_grad():
+                self.running_mean.data.lerp_(x32.detach().sum(dim=(0, 2, 3)),
+                                             m)
+                self.running_var.data.mul_(1.0 - m)
+                self.num_batches_tracked.data.add_(1)
+        return y.to(torch.bfloat16 if bf16 else x.dtype)
+
     def _flax_normalize(self, x: torch.Tensor) -> torch.Tensor:
         """Eval mode at a bfloat16 compute dtype: flax's ``BatchNorm`` in
         float32 (``pai_tpu/ops/layers.py:178-188``), ``(x - mean) *
@@ -269,6 +301,26 @@ class BatchNorm(nn.BatchNorm2d):
         return torch.addcmul(self.bias.view(shape),
                              x - self.running_mean.view(shape),
                              mul.view(shape)).to(torch.bfloat16)
+
+
+class InstanceNorm(nn.Module):
+    """torch ``nn.InstanceNorm2d`` with its defaults (no affine, no running
+    statistics, eps 1e-5) on NCHW: each (sample, channel) normalised over H
+    and W with its biased variance, in float32, cast back to the compute
+    dtype (``pai_tpu/ops/layers.py:191-205``)."""
+
+    def __init__(self, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bf16 = x.dtype == torch.bfloat16 or bf16_autocast(x)
+        with torch.autocast(device_type=x.device.type, enabled=False):
+            y = nn.functional.instance_norm(x.float(), eps=self.eps)
+        return y.to(torch.bfloat16 if bf16 else x.dtype)
+
+    def extra_repr(self) -> str:
+        return f"eps={self.eps}"
 
 
 class Dropout(nn.Module):

@@ -17,7 +17,8 @@ import torch
 from pai_tpu_torch.config import (apply_precision_policy, compute_dtype,
                                   parse_int_list, resolve_device)
 from pai_tpu_torch.models import build_generator
-from pai_tpu_torch.utils.checkpoint import EMA_PREFIX, OPT_PREFIX
+from pai_tpu_torch.utils.checkpoint import (DISCRIMINATOR_PREFIX, EMA_PREFIX,
+                                            OPT_PREFIX)
 
 DEFAULT_IMAGE_SIZE = 256
 
@@ -39,14 +40,16 @@ def build_generator_from_hparams(h: Mapping, image_size: int,
 
 def eval_state_dict(state_dict: Mapping, h: Mapping
                     ) -> Dict[str, torch.Tensor]:
-    """The tensors evaluation runs with: the EMA shadow weights over the raw
-    ones where the run kept them (buffers, which the average does not span,
-    stay the raw ones). A training slot's optimizer state is left out."""
-    raw = {k: v for k, v in state_dict.items()
-           if not k.startswith((EMA_PREFIX, OPT_PREFIX))}
+    """The generator's tensors evaluation runs with: the EMA shadow weights
+    over the raw ones where the run kept them (buffers, which the average
+    does not span, stay the raw ones). A training slot's optimizer state and
+    a GAN slot's discriminator (raw and averaged) are left out."""
+    skip = (EMA_PREFIX, OPT_PREFIX, DISCRIMINATOR_PREFIX)
+    raw = {k: v for k, v in state_dict.items() if not k.startswith(skip)}
     if h.get("ema", False):
         raw.update({k[len(EMA_PREFIX):]: v for k, v in state_dict.items()
-                    if k.startswith(EMA_PREFIX)})
+                    if k.startswith(EMA_PREFIX)
+                    and not k[len(EMA_PREFIX):].startswith(skip)})
     return raw
 
 

@@ -3,9 +3,11 @@ epoch loop, validation cadence, metric logging, best/last checkpoints.
 
 * epochs / max-steps limits, validation every ``val_epochs`` epochs, CSV
   metric rows every 10 steps (the only points where the loop waits for the
-  device);
-* validation samples each batch with the 100-step chain, writes the outputs
-  as PNGs under ``<log_dir>/<name>/version_<k>/<epoch + 1>/`` and reduces
+  device); the GAN families run the lean step (no train metrics) on the
+  other nine;
+* validation: the GAN families run the evaluation step on each batch;
+  Palette samples each batch with the 100-step chain and writes the outputs
+  as PNGs under ``<log_dir>/<name>/version_<k>/<epoch + 1>/``. Both reduce
   the per-image metrics as Lightning does: ``val_ssim`` the per-image mean,
   ``val_psnr``/``val_rmse`` batch-size-weighted means of the batch values
   computed from the batch's mean MSE;
@@ -15,12 +17,13 @@ epoch loop, validation cadence, metric logging, best/last checkpoints.
 * EMA updated after every step; validation and checkpoints' evaluation
   weights are the EMA's.
 
-Ported: the Palette branch. The GAN families' training is ROADMAP.md Queue A
-item 3, the multi-device options (``--tp``, ``--sp``, ``--fsdp``) item 7; both
-raise ``NotImplementedError``. ``--scan-steps K`` is accepted and runs K
-ordinary steps (the JAX package folds them into one compiled ``lax.scan``;
-the result is the same). ``--profile-dir`` writes a ``torch.profiler`` trace
-of the first 12 steps there.
+Ported: Pix2Pix (the five losses, with the PatchGAN for ``gan``) and
+Palette. The other generator families are ROADMAP.md Queue A item 5, the
+multi-device options (``--tp``, ``--sp``, ``--fsdp``) item 7; both raise
+``NotImplementedError``. ``--scan-steps K`` is accepted and runs K ordinary
+steps (the JAX package folds them into one compiled ``lax.scan``; the result
+is the same). ``--profile-dir`` writes a ``torch.profiler`` trace of the first
+12 steps there.
 """
 
 from __future__ import annotations
@@ -29,75 +32,96 @@ import math
 import os
 import sys
 import time
-from typing import Dict, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from pai_tpu_torch.config import (TRAIN_DEFAULTS, apply_precision_policy,
-                                  resolve_device, sanitize_hparams)
+                                  compute_dtype, resolve_device,
+                                  sanitize_hparams)
 from pai_tpu_torch.data import BatchLoader, ImageDataset
 from pai_tpu_torch.diffusion import make_schedule
+from pai_tpu_torch.models import Discriminator
 from pai_tpu_torch.restore import build_generator_from_hparams
 from pai_tpu_torch.train import steps as steps_lib
-from pai_tpu_torch.train.state import PaletteTrainState
-from pai_tpu_torch.utils.checkpoint import (EMA_PREFIX, OPT_PREFIX,
-                                            CheckpointManager)
+from pai_tpu_torch.train.state import GanTrainState, PaletteTrainState
+from pai_tpu_torch.utils.checkpoint import (DISCRIMINATOR_PREFIX, EMA_PREFIX,
+                                            OPT_PREFIX, CheckpointManager)
 from pai_tpu_torch.utils.images import denormalize, to_int, write_png
 from pai_tpu_torch.utils.logging import CSVLogger
 
 IMAGE_SIZE = 256
 LOG_EVERY = 10
 PROFILE_STEPS = 12
+TRAINED_MODELS = ("pix2pix", "palette")
+
+TrainState = Union[GanTrainState, PaletteTrainState]
 
 
-def train_state_dict(state: PaletteTrainState) -> Dict[str, torch.Tensor]:
-    """The whole train state as one flat ``state_dict``: the module's tensors
-    (parameters and running statistics), ``ema.<name>`` shadow weights and
+def _networks(state: TrainState
+              ) -> List[Tuple[str, torch.nn.Module, torch.optim.Optimizer]]:
+    """(slot-name prefix, module, its optimizer) of every network a train
+    state trains."""
+    if isinstance(state, PaletteTrainState):
+        return [("", state.model, state.opt)]
+    nets = [("", state.generator, state.g_opt)]
+    if state.discriminator is not None:
+        nets.append((DISCRIMINATOR_PREFIX, state.discriminator, state.d_opt))
+    return nets
+
+
+def train_state_dict(state: TrainState) -> Dict[str, torch.Tensor]:
+    """The whole train state as one flat ``state_dict``: each module's
+    tensors (parameters and running statistics; a discriminator's under
+    ``discriminator.``), ``ema.<name>`` shadow weights and
     ``opt.<name>.<key>`` Adam state. The tensors are the live ones, not
     copies."""
-    flat = dict(state.model.state_dict())
+    flat: Dict[str, torch.Tensor] = {}
+    for prefix, module, opt in _networks(state):
+        flat.update({prefix + k: v for k, v in module.state_dict().items()})
+        for name, param in module.named_parameters():
+            for key, value in opt.state.get(param, {}).items():
+                flat[f"{OPT_PREFIX}{prefix}{name}.{key}"] = value
     if state.ema is not None:
         flat.update({EMA_PREFIX + k: v for k, v in state.ema.params.items()})
-    for name, param in state.model.named_parameters():
-        for key, value in state.opt.state.get(param, {}).items():
-            flat[f"{OPT_PREFIX}{name}.{key}"] = value
     return flat
 
 
-def load_train_state(state: PaletteTrainState,
-                     flat: Mapping[str, torch.Tensor], meta: Mapping) -> None:
+def load_train_state(state: TrainState, flat: Mapping[str, torch.Tensor],
+                     meta: Mapping) -> None:
     """Restore ``state`` in place from a training slot written from
     ``train_state_dict`` (and its meta)."""
-    model_keys = state.model.state_dict().keys()
-    state.model.load_state_dict({k: flat[k] for k in model_keys})
+    for prefix, module, opt in _networks(state):
+        module.load_state_dict({k: flat[prefix + k]
+                                for k in module.state_dict()})
+        opt_sd = opt.state_dict()
+        for index, (name, _) in enumerate(module.named_parameters()):
+            head = f"{OPT_PREFIX}{prefix}{name}."
+            entry = {k[len(head):]: v for k, v in flat.items()
+                     if k.startswith(head)}
+            if entry:
+                opt_sd["state"][index] = entry
+        opt.load_state_dict(opt_sd)
     if state.ema is not None:
         with torch.no_grad():
             for k, v in state.ema.params.items():
                 v.copy_(flat[EMA_PREFIX + k])
         state.ema.num_updates = int(meta.get("ema_num_updates", 0))
-    opt_sd = state.opt.state_dict()
-    for index, (name, _) in enumerate(state.model.named_parameters()):
-        prefix = f"{OPT_PREFIX}{name}."
-        entry = {k[len(prefix):]: v for k, v in flat.items()
-                 if k.startswith(prefix)}
-        if entry:
-            opt_sd["state"][index] = entry
-    state.opt.load_state_dict(opt_sd)
     state.step = int(meta["step"])
 
 
 class Trainer:
-    """One training run of the Palette model; ``hparams`` as the train CLI
+    """One training run of Pix2Pix or Palette; ``hparams`` as the train CLI
     gives them (any missing key takes ``TRAIN_DEFAULTS``'s value), plus
     ``name``, ``data``, ``val_data`` and ``device``."""
 
     def __init__(self, hparams: Mapping, image_size: Optional[int] = None):
         h = dict(TRAIN_DEFAULTS, **hparams)
-        if h["model"] != "palette":
+        if h["model"] not in TRAINED_MODELS:
             raise NotImplementedError(
                 f"training '{h['model']}' is not ported to pai_tpu_torch yet: "
-                "ROADMAP.md Queue A item 3 (GAN training)")
+                "ROADMAP.md Queue A item 5 (other generator families)")
         if int(h.get("tp") or 1) != 1 or int(h.get("sp") or 1) != 1 \
                 or h.get("fsdp"):
             raise NotImplementedError(
@@ -112,18 +136,30 @@ class Trainer:
         self.image_size = int(image_size or h.get("image_size") or IMAGE_SIZE)
         self.device = resolve_device(h.get("device") or "cuda")
         self.seed = int(h.get("seed") or 0)
+        self.is_palette = h["model"] == "palette"
         self.learn_var = bool(h.get("learn_variance", False))
         apply_precision_policy(h["precision"])
 
+        # seeds the weights' init and then every step's draws
         self.generator = torch.Generator(device=self.device).manual_seed(
             self.seed)
         self.model = build_generator_from_hparams(
             h, self.image_size, generator=self.generator, device=self.device)
-        self.sched_train = make_schedule(h["schedule_type"], 2000, 1e-6, 0.01,
-                                         device=self.device)
-        self.sched_inf = make_schedule("cosine", 100, device=self.device)
-        self.sample_step = steps_lib.make_palette_sample_step(
-            self.model, self.sched_inf, self.learn_var)
+        self.discriminator: Optional[torch.nn.Module] = None
+        if self.is_palette:
+            self.sched_train = make_schedule(h["schedule_type"], 2000, 1e-6,
+                                             0.01, device=self.device)
+            self.sched_inf = make_schedule("cosine", 100, device=self.device)
+            self.sample_step = steps_lib.make_palette_sample_step(
+                self.model, self.sched_inf, self.learn_var)
+        else:
+            if h["loss_type"] == "gan":
+                self.discriminator = Discriminator(
+                    int(h.get("in_channels") or 1)
+                    + int(h.get("out_channels") or 1),
+                    dtype=compute_dtype(h["precision"]),
+                    generator=self.generator, device=self.device)
+            self.eval_step = steps_lib.make_gan_eval_step(self.model)
         self.logger = CSVLogger(h.get("log_dir") or "logs", self.name)
         self.logger.log_hparams(sanitize_hparams(h))
         self.ckpt = CheckpointManager(h.get("ckpt_dir") or "checkpoints",
@@ -131,33 +167,39 @@ class Trainer:
         self.val_loader: Optional[BatchLoader] = None
 
     # ------------------------------------------------------------------
-    def _slot(self, state: PaletteTrainState) -> tuple:
+    def _slot(self, state: TrainState) -> tuple:
         """What a checkpoint slot holds besides the hparams: the flat train
         state and the EMA's update count (its decay ramp)."""
         return (train_state_dict(state),
                 {"ema_num_updates": state.ema.num_updates
                  if state.ema is not None else 0})
 
-    def validate(self, state: PaletteTrainState, epoch: int
-                 ) -> Dict[str, float]:
-        """Sample every validation batch, write its outputs, and reduce the
-        per-image metrics (see the module docstring)."""
-        params = steps_lib.palette_eval_params(state)
-        epoch_dir = os.path.join(self.logger.log_dir, str(epoch + 1))
-        os.makedirs(epoch_dir, exist_ok=True)
-        generator = torch.Generator(device=self.device).manual_seed(
-            self.seed + 7919 + epoch)
+    def validate(self, state: TrainState, epoch: int) -> Dict[str, float]:
+        """Evaluate every validation batch (Palette: sample it and write its
+        outputs) and reduce the per-image metrics (see the module
+        docstring)."""
+        if self.is_palette:
+            params = steps_lib.palette_eval_params(state)
+            epoch_dir = os.path.join(self.logger.log_dir, str(epoch + 1))
+            os.makedirs(epoch_dir, exist_ok=True)
+            generator = torch.Generator(device=self.device).manual_seed(
+                self.seed + 7919 + epoch)
+        else:
+            params = steps_lib.gan_eval_params(state)
         ssim_sum = psnr_wsum = rmse_wsum = 0.0
         total = out_index = 0
         for batch in self.val_loader:
-            y_pred, per_image = self.sample_step(params, batch.x, batch.y,
-                                                 generator)
             n = batch.n_valid
-            frames = to_int(denormalize(y_pred[:n])).cpu().numpy()
-            for frame in frames:
-                write_png(frame, os.path.join(epoch_dir,
-                                              f"output_{out_index}.png"))
-                out_index += 1
+            if self.is_palette:
+                y_pred, per_image = self.sample_step(params, batch.x,
+                                                     batch.y, generator)
+                frames = to_int(denormalize(y_pred[:n])).cpu().numpy()
+                for frame in frames:
+                    write_png(frame, os.path.join(
+                        epoch_dir, f"output_{out_index}.png"))
+                    out_index += 1
+            else:
+                _, per_image = self.eval_step(params, batch.x, batch.y)
             ssim_sum += float(per_image["ssim"][:n].sum())
             batch_mse = float(per_image["mse"][:n].mean())
             psnr_wsum += n * 10.0 * math.log10(1.0 / max(batch_mse, 1e-20))
@@ -168,17 +210,33 @@ class Trainer:
         return {"val_ssim": ssim_sum / total, "val_psnr": psnr_wsum / total,
                 "val_rmse": rmse_wsum / total}
 
+    def _steps(self, n_train: int):
+        """``(state, train_step, lean_step)``: a fresh train state and the
+        step of the logged steps and of the others."""
+        h = self.hparams
+        if self.is_palette:
+            spe = math.ceil(n_train / int(h["batch_size"])) \
+                if h.get("warmup_unit", "epoch") == "epoch" else None
+            step = steps_lib.make_palette_train_step(
+                self.model, self.sched_train, self.learn_var,
+                warmup_steps_per_epoch=spe, generator=self.generator,
+                seed=self.seed)
+            state = steps_lib.init_palette_state(self.model, bool(h["ema"]))
+            return state, step, step
+        state = steps_lib.init_gan_state(self.model, self.discriminator,
+                                         h["loss_type"], bool(h["ema"]))
+        step, lean = (steps_lib.make_gan_train_step(
+            self.model, self.discriminator, h["loss_type"],
+            compute_metrics=full, rng=self.generator, seed=self.seed)
+            for full in (True, False))
+        return state, step, lean
+
     # ------------------------------------------------------------------
     def fit(self) -> Dict[str, float]:
         h = self.hparams
         bs = int(h["batch_size"])
         train_dataset = ImageDataset(h["data"], self.image_size)
-        spe = math.ceil(len(train_dataset) / bs) \
-            if h.get("warmup_unit", "epoch") == "epoch" else None
-        train_step = steps_lib.make_palette_train_step(
-            self.model, self.sched_train, self.learn_var,
-            warmup_steps_per_epoch=spe, generator=self.generator,
-            seed=self.seed)
+        state, train_step, lean_step = self._steps(len(train_dataset))
         val_dataset = ImageDataset(h["val_data"], self.image_size) \
             if h.get("val_data") else None
         self.val_loader = BatchLoader(val_dataset, bs, shuffle=False,
@@ -188,7 +246,6 @@ class Trainer:
                              pad_mode="cycle", seed=self.seed,
                              device=self.device)
 
-        state = steps_lib.init_palette_state(self.model, bool(h["ema"]))
         start_epoch = 0
         if h.get("resume"):
             try:
@@ -219,7 +276,9 @@ class Trainer:
             for epoch in range(start_epoch, int(h["epochs"])):
                 loader.epoch = epoch  # the epoch's seeded order
                 for batch in loader:
-                    state, step_metrics = train_step(state, batch.x, batch.y)
+                    step = train_step if (state.step + 1) % LOG_EVERY == 0 \
+                        else lean_step
+                    state, step_metrics = step(state, batch.x, batch.y)
                     images_seen += batch.n_valid
                     if state.step % LOG_EVERY == 0:
                         vals = {k: float(v) for k, v in step_metrics.items()}

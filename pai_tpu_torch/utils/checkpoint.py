@@ -5,10 +5,11 @@ non-finite loss) ``<root>/<name>/diverged/``, each a slot directory holding
 
 * ``state.pt`` — ``torch.save`` of a plain flat ``state_dict`` (name ->
   tensor): the generator's tensors (parameters and BatchNorm running
-  statistics) under their own names; where a run kept an exponential moving
-  average, its shadow weights under ``ema.<name>``; in a training slot also
-  Adam's moments and step count under ``opt.<name>.<exp_avg|exp_avg_sq|
-  step>``;
+  statistics) under their own names; in a GAN training slot the PatchGAN's
+  under ``discriminator.<name>``; where a run kept an exponential moving
+  average, its shadow weights under ``ema.<name>`` (both networks'); in a
+  training slot also Adam's moments and step count under
+  ``opt.<name>.<exp_avg|exp_avg_sq|step>`` (both chains);
 * ``meta.json`` — ``hparams`` (the model is rebuilt from these alone),
   ``step``, ``epoch`` and ``monitor_value`` (and ``ema_num_updates`` in a
   training slot). JSON where the JAX package writes YAML, because ``yaml``
@@ -17,9 +18,10 @@ non-finite loss) ``<root>/<name>/diverged/``, each a slot directory holding
 Same slot and meta semantics as the Orbax layout. An evaluation slot
 (``save_eval_checkpoint``) and a training slot (``CheckpointManager``) load
 alike through ``load_checkpoint``; ``restore.eval_state_dict`` leaves the
-optimizer's tensors out. ``CheckpointManager`` keeps ``best`` on the largest
-``val_ssim``, ``last`` at every validation and at the end of training, and
-``diverged`` apart from ``last``, which ``--resume`` reads. A slot is written
+optimizer's and the discriminator's tensors out. ``CheckpointManager`` keeps
+``best`` on the largest ``val_ssim``, ``last`` at every validation and at the
+end of training, and ``diverged`` apart from ``last``, which ``--resume``
+reads. A slot is written
 beside itself and renamed into place, so a reader never sees half of one.
 """
 
@@ -36,6 +38,7 @@ from pai_tpu_torch.config import sanitize_hparams
 
 EMA_PREFIX = "ema."
 OPT_PREFIX = "opt."
+DISCRIMINATOR_PREFIX = "discriminator."
 
 
 def _write_slot(slot_dir: str, flat: Mapping[str, torch.Tensor],

@@ -43,6 +43,17 @@ Bounds, each with its reason:
   1 for the control): a scalar that cannot tell the rounding apart, so it
   is read, not bounded. The half-gap target is met by Pix2Pix only;
   ROADMAP.md Queue C item 1 keeps the rest.
+* One GAN training step of Pix2Pix (mults (1, 2, 4), 32x32) with its
+  PatchGAN, both at bfloat16, in train mode: the prediction and five
+  gradients (the generator's first, second and last convolutions, the
+  PatchGAN's first and its head) read as the Palette step's, mean corr at
+  least 0.7 (measured 0.90, control -0.01), the prediction's equal share
+  at least 0.1 (measured 0.25, control 0); the generator's and the
+  discriminator's losses within 0.75 of their gaps (measured 0.41 and 0.02,
+  control 1.0). Not bounded: the gradients' largest differences (0.06-0.74
+  of their gaps, about one bf16 unit of a product summed over the batch, as
+  the control's 1.0), and every gradient's equal share (float32 sums of
+  bf16 products in other orders: 0 for both).
 * Float32 is unchanged: the same layers at float32 against JAX at float32
   within the float32 tests' tolerances (rtol 1e-4, atol 1e-5).
 """
@@ -60,9 +71,11 @@ from pai_tpu_torch.interop import jax_params, state_dict_from_jax
 from pai_tpu_torch.models import build_generator
 from pai_tpu_torch.models import diffusion_unet as tdu
 from pai_tpu_torch.ops import layers as tl
-from torch_port_util import (bn_map, conv_map, load_flax_block,
+from torch_port_util import (bn_map, conv_map, discriminator_numpy_params,
+                             gan_batches, jax_gan_state, load_flax_block,
                              numpy_tree_like, palette_numpy_variables,
-                             pix2pix_numpy_variables, port_palette_model)
+                             pix2pix_numpy_variables, port_gan_models,
+                             port_palette_model)
 
 BF16 = jnp.bfloat16
 UNIT = 1.0          # bfloat16 units in the last place, one layer alone
@@ -537,3 +550,86 @@ def test_palette_step_at_bf16_matches_jax():
     assert corr >= STEP_CORR and found["output"]["equal"] >= STEP_EQUAL, got
     corr, found, _ = got[torch.float32]
     assert corr < STEP_CORR and found["output"]["equal"] < STEP_EQUAL, got
+
+
+# the generator's first, second and last convolutions, the PatchGAN's first
+# and its head: (name, flax path, kind) per network
+GAN_GRADIENTS = {
+    "g_grads": {"encoders.0.weight": ("stem", "kernel", "conv"),
+                "encoders.1.encode.1.weight": ("enc_1", "Conv_0", "kernel",
+                                               "conv"),
+                "decoders.2.weight": ("head", "kernel", "convt")},
+    "d_grads": {"discriminator.0.block.0.weight": (
+                    "DiscriminatorBlock_0", "Conv_0", "kernel", "conv"),
+                "discriminator.4.weight": ("Conv_0", "kernel", "conv")},
+}
+GAN_STEP_CORR = 0.7
+GAN_STEP_EQUAL = 0.1
+GAN_LOSS_GAP = 0.75
+
+
+def test_gan_step_at_bf16_matches_jax():
+    """One ``gan`` training step (train mode, the PatchGAN's update, the
+    generator's loss against the updated PatchGAN): the prediction, named
+    gradients of both networks and both losses (module docstring)."""
+    from pai_tpu.models import Discriminator as JaxDiscriminator
+    from pai_tpu.models.pix2pix import Pix2PixUnet
+    from pai_tpu.train import steps as jsteps
+    from pai_tpu_torch.train import steps as tsteps
+
+    mults = (1, 2, 4)
+    _, params, stats = pix2pix_numpy_variables(mults, 32, seed=5)
+    dparams = discriminator_numpy_params(6)
+    x, y = gan_batches(7, 1)[0]
+    results = {}
+    for dtype in (BF16, jnp.float32):
+        gen = Pix2PixUnet(channel_mults=mults, dtype=dtype)
+        step = jax.jit(jsteps.make_gan_train_step(
+            gen, JaxDiscriminator(dtype=dtype), "gan",
+            compute_metrics=False, with_grads=True))
+        _, found = step(jax_gan_state(params, stats, dparams, "gan"), x, y,
+                        jax.random.key(0))
+        pred, _ = jax.jit(lambda v, a, gen=gen: gen.apply(
+            v, a, train=True, mutable=["batch_stats"]))(
+            {"params": params, "batch_stats": stats}, x)
+        results[dtype] = (pred, found)
+
+    def readings(dtype):
+        gen, disc = port_gan_models(params, stats, dparams, mults)
+        gen.compute_dtype = disc.compute_dtype = dtype
+        preds = []
+        gen.register_forward_hook(lambda m, a, out: preds.append(out))
+        state = tsteps.init_gan_state(gen, disc, "gan", use_ema=False)
+        _, got = tsteps.make_gan_train_step(
+            gen, disc, "gan", compute_metrics=False, with_grads=True)(
+            state, torch.from_numpy(x), torch.from_numpy(y))
+        found = {"output": _agreement(preds[0], results[BF16][0],
+                                      results[jnp.float32][0])}
+        for key, names in GAN_GRADIENTS.items():
+            for name, path in names.items():
+                *keys, kind = path
+                want16, want32 = results[BF16][1][key], \
+                    results[jnp.float32][1][key]
+                for k in keys:
+                    want16, want32 = want16[k], want32[k]
+                want16, want32 = (jax_params._to_torch(np.asarray(w), kind)
+                                  for w in (want16, want32))
+                found[name] = _agreement(got[key][name], want16, want32)
+        corr = float(np.mean([a["corr"] for a in found.values()]))
+        losses = {k: abs(float(got[k]) - float(results[BF16][1][k]))
+                  / abs(float(results[BF16][1][k])
+                        - float(results[jnp.float32][1][k]))
+                  for k in ("loss", "d_loss")}
+        return corr, found, losses
+
+    def passes(corr, found, losses):
+        return (corr >= GAN_STEP_CORR
+                and found["output"]["equal"] >= GAN_STEP_EQUAL
+                and max(losses.values()) <= GAN_LOSS_GAP)
+
+    port = readings(torch.bfloat16)
+    assert passes(*port), port
+    control = readings(torch.float32)  # the same model unrounded
+    assert control[0] < GAN_STEP_CORR, control
+    assert control[1]["output"]["equal"] < GAN_STEP_EQUAL, control
+    assert min(control[2].values()) > GAN_LOSS_GAP, control

@@ -249,10 +249,9 @@ def test_entry_points_default_to_the_card_and_raise_without_one(reports):
 
 
 def test_unported_api_surface_names_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Pix2Pix(device="cpu").fit("run", "data.yaml")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        Pix2Pix(device="cpu").fit("run", "data.yaml")  # Palette's is ported
+    for cls in (AttentionUnetGAN, TransUnetGAN):
+        with pytest.raises(NotImplementedError, match="Queue A item 5"):
+            cls(device="cpu").fit("run", "data.yaml")
     for cls in (AttentionUnetGAN, TransUnetGAN):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cls(device="cpu")

@@ -1,14 +1,18 @@
 """The port's training engine on the CPU, no JAX trainer compiled: the
 ``Trainer`` (slots, logs, validation samples, resume, divergence), the train
-CLI's flag surface against the root ``main.py``, ``api.Palette.fit``, the
-CSV logger and the checkpoint manager against the JAX package's, and the
-training loader's order against the JAX loader's.
+CLI's flag surface against the root ``main.py``, ``api.Palette.fit`` and
+``api.Pix2Pix.fit``, the CSV logger and the checkpoint manager against the
+JAX package's, and the training loader's order against the JAX loader's.
 
 Sizes: 32x32 images, channel mults (1, 2), attention at downsample rate 2,
 the UNet's base width narrowed to 16 (the registry fixes 128; the test wraps
 the class it builds) and the 100-step sampling schedule shortened to 4 (the
 way the palette report test shortens its own), so that a run of a few
-epochs takes seconds."""
+epochs takes seconds. The GAN runs (Pix2Pix, channel mults (1, 2, 4), the
+PatchGAN at its published widths) take 32x32 through the CLI (the test sets
+its image size, which the CLI fixes at 256), and 176x176 for the one step
+whose best slot the report CLI then serves (its 16 depth bands need more
+than 10 rows each)."""
 
 import argparse
 import csv
@@ -22,9 +26,10 @@ import pytest
 import torch
 
 from pai_tpu_torch import main as port_main
-from pai_tpu_torch.api import Palette
+from pai_tpu_torch.api import AttentionUnetGAN, Palette, Pix2Pix
 from pai_tpu_torch.data import BatchLoader, ImageDataset
-from pai_tpu_torch.models import diffusion_unet, registry
+from pai_tpu_torch.models import (Discriminator, build_generator,
+                                  diffusion_unet, registry)
 from pai_tpu_torch.train import loop
 from pai_tpu_torch.train import steps as steps_lib
 from pai_tpu_torch.utils import images as ti
@@ -230,6 +235,143 @@ def test_palette_fit_through_the_api(small_world, tmp_path):
         assert torch.equal(tensor, state[name]), name
 
 
+# ------------------------------------------------------- GAN training
+GAN_EPOCHS = 4  # 12 steps of 5 images in batches of 2, validations at 2, 4
+
+
+def _gan_argv(world, out, *extra, validate=True):
+    return ["gan", "-d", world["train"], "-m", "pix2pix", "--channel-mults",
+            "1,2,4", "--batch-size", str(BATCH), "--device", "cpu",
+            "--log-dir", str(out / "logs"), "--ckpt-dir", str(out / "ckpt"),
+            *(["-vd", world["val"]] if validate else []), *extra]
+
+
+@pytest.fixture(scope="module")
+def gan_run(small_world, tmp_path_factory):
+    """``python -m pai_tpu_torch.main gan -m pix2pix`` (the CLI's default
+    ``--loss-type gan``) at 32x32 with the EMA: 12 steps, validations after
+    epochs 2 and 4."""
+    out = tmp_path_factory.mktemp("gan")
+    patch = pytest.MonkeyPatch()
+    patch.setattr(loop, "IMAGE_SIZE", SIZE)
+    try:
+        summary = port_main.main(_gan_argv(
+            small_world, out, "-e", str(GAN_EPOCHS), "--val-epochs", "2",
+            "--ema"))
+    finally:
+        patch.undo()
+    return {"summary": summary, "ckpt": out / "ckpt" / "gan",
+            "log": out / "logs" / "gan" / "version_0"}
+
+
+def test_gan_cli_logs_losses_and_train_metrics_at_log_rows(gan_run):
+    assert gan_run["summary"]["steps"] == 12
+    with open(gan_run["log"] / "metrics.csv") as f:
+        header = f.readline().strip().split(",")
+    assert header == ["epoch", "step", "val_ssim", "val_psnr", "val_rmse",
+                      "loss", "d_loss", "train_ssim", "train_psnr",
+                      "train_rmse"]
+    rows = _csv_rows(gan_run["log"])
+    assert [(r["epoch"], r["step"]) for r in rows] == [
+        ("1", "6"), ("3", "10"), ("3", "12")]
+    assert all(np.isfinite(float(rows[1][k])) for k in header[5:])
+    assert rows[1]["val_ssim"] == ""
+    assert all(np.isfinite(float(rows[i][k])) for i in (0, 2)
+               for k in header[2:5])
+    assert float(rows[2]["val_ssim"]) == pytest.approx(
+        gan_run["summary"]["val_ssim"])
+    assert not any(name.isdigit() for name in os.listdir(gan_run["log"]))
+
+
+def test_gan_slots_hold_both_networks_and_both_adam_chains(gan_run):
+    assert sorted(os.listdir(gan_run["ckpt"])) == ["best", "last"]
+    gen = build_generator("pix2pix", channel_mults=(1, 2, 4), device="meta")
+    g_params = [k for k, _ in gen.named_parameters()]
+    d_params = [f"discriminator.{k}" for k, _ in Discriminator(
+        device="meta").named_parameters()]
+    state, meta = load_checkpoint(str(gan_run["ckpt"] / "last"))
+    assert (meta["step"], meta["epoch"], meta["ema_num_updates"]) == \
+        (12, 3, 12)
+    assert set(state) == (
+        set(gen.state_dict()) | set(d_params)
+        | {f"ema.{k}" for k in g_params + d_params}
+        | {f"opt.{k}.{m}" for k in g_params + d_params
+           for m in ("exp_avg", "exp_avg_sq", "step")})
+    best, meta = load_checkpoint(str(gan_run["ckpt"] / "best"))
+    assert meta["monitor_value"] == max(
+        float(r["val_ssim"]) for r in _csv_rows(gan_run["log"])
+        if r["val_ssim"])
+    # the report and the API rebuild the generator alone, from the EMA
+    model = Pix2Pix.load_from_checkpoint(str(gan_run["ckpt"] / "best"),
+                                         device="cpu")
+    for name, tensor in model._module.state_dict().items():
+        assert torch.equal(tensor, best.get(f"ema.{name}", best[name])), name
+    assert not model._module.training
+
+
+def test_gan_report_cli_serves_the_best_slot(small_world, tmp_path):
+    """One GAN step at 176x176 with a validation, then ``python -m
+    pai_tpu_torch.report -m pix2pix -c <best>`` on it."""
+    from pai_tpu_torch import report as port_report
+
+    h = dict(_hparams(small_world, tmp_path, model="pix2pix",
+                      channel_mults="1,2,4", epochs=1, steps=1, val_epochs=1,
+                      image_size=176))
+    assert loop.Trainer(h).fit()["steps"] == 1
+    best = tmp_path / "ckpt" / "run" / "best"
+    port_report.main(["rep", "-c", str(best), "-d", small_world["val"],
+                      "-m", "pix2pix", "-bs", "2", "--device", "cpu",
+                      "--reports-dir", str(tmp_path / "reports")])
+    out = tmp_path / "reports" / "rep"
+    assert {"stats.txt", "depth_ssim.csv", "outputs",
+            "ssim_images"} <= set(os.listdir(out))
+    assert len(os.listdir(out / "outputs")) == N_VAL
+    assert "SSIM" in (out / "stats.txt").read_text().upper()
+
+
+def test_gan_resume_continues_where_an_uninterrupted_run_would_be(
+        small_world, tmp_path, monkeypatch):
+    """As for Palette: 1 epoch, then --resume to 2, ends bit for bit where 2
+    epochs in one run end (both networks, both Adam chains, the EMA, the
+    running statistics)."""
+    monkeypatch.setattr(loop, "IMAGE_SIZE", SIZE)
+    for tag, epochs in (("one", ["-e", "2"]), ("two", ["-e", "1"]),
+                        ("two", ["-e", "2", "--resume"])):
+        port_main.main(_gan_argv(small_world, tmp_path / tag, *epochs,
+                                 "--ema", validate=False))
+    a, meta_a = load_checkpoint(str(tmp_path / "one" / "ckpt" / "gan" /
+                                    "last"))
+    b, meta_b = load_checkpoint(str(tmp_path / "two" / "ckpt" / "gan" /
+                                    "last"))
+    assert meta_a == dict(meta_b, hparams=meta_a["hparams"])
+    assert (meta_b["step"], meta_b["epoch"]) == (6, 1)
+    assert a.keys() == b.keys()
+    assert any(k.startswith("opt.discriminator.") for k in a)
+    for name in a:
+        assert torch.equal(a[name], b[name]), name
+
+
+def test_pix2pix_fit_through_the_api(small_world, tmp_path):
+    model = Pix2Pix(channel_mults=(1, 2, 4), loss_type="mse",
+                    image_size=SIZE, device="cpu")
+    summary = model.fit("apigan", small_world["train"], small_world["val"],
+                        epochs=1, val_epochs=1, batch_size=BATCH,
+                        log_dir=str(tmp_path / "logs"),
+                        ckpt_dir=str(tmp_path / "ckpt"))
+    assert summary["steps"] == 3
+    assert all(np.isfinite(summary[k]) for k in ("val_ssim", "val_psnr",
+                                                  "val_rmse"))
+    state, meta = load_checkpoint(str(tmp_path / "ckpt" / "apigan" / "last"))
+    assert meta["hparams"]["loss_type"] == "mse"
+    assert not any(k.startswith("discriminator.") for k in state)
+    for name, tensor in model._module.state_dict().items():
+        assert torch.equal(tensor, state[name]), name
+    out = model.predict(np.zeros((1, SIZE, SIZE, 1), np.float32))
+    assert out.shape == (1, SIZE, SIZE, 1)
+    with pytest.raises(NotImplementedError, match="Queue A item 5"):
+        AttentionUnetGAN(device="cpu")
+
+
 # ------------------------------------------------------------------ the CLI
 def _root_main_parser(monkeypatch):
     """The root ``main.py``'s parser, caught as it parses (the script builds
@@ -264,7 +406,7 @@ def test_cli_flag_surface_matches_the_root_main(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,error,match", [
-    (["-m", "pix2pix"], NotImplementedError, "Queue A item 3"),
+    (["-m", "attention_unet"], NotImplementedError, "Queue A item 5"),
     (["-m", "palette", "--tp", "2"], NotImplementedError, "item 7"),
     (["-m", "palette", "--sp", "2"], NotImplementedError, "item 7"),
     (["-m", "palette", "--fsdp"], NotImplementedError, "item 7"),
@@ -321,6 +463,39 @@ def test_checkpoint_manager_keeps_the_best_val_ssim(tmp_path):
     assert again.best_value == pytest.approx(0.6)
     assert not again.maybe_save_best({"w": torch.zeros(2)}, hp, 2, 1, 0.55)
     assert not any(name.endswith(".tmp") for name in os.listdir(again.dir))
+
+
+@pytest.mark.parametrize("stage", ["fit", "validate", "test", "predict"])
+def test_image_data_module_matches_jax(small_world, stage):
+    """The same splits per stage, the same loaders (shuffle and pad mode),
+    and, for the unshuffled ones, the same batches."""
+    from pai_tpu.data import ImageDataModule as JaxImageDataModule
+    from pai_tpu_torch.data import ImageDataModule
+
+    args = (small_world["train"], small_world["val"], BATCH)
+    ours = ImageDataModule(*args, image_size=SIZE, seed=3, device="cpu")
+    theirs = JaxImageDataModule(*args, image_size=SIZE, seed=3)
+    ours.setup(stage)
+    theirs.setup(stage)
+    for split in ("train", "val", "test", "pred"):
+        mine, want = (getattr(m, f"{split}_split") for m in (ours, theirs))
+        assert (mine is None) == (want is None), split
+        if mine is None:
+            continue
+        assert mine.pairs == want.pairs, split
+        name = {"pred": "predict"}.get(split, split)
+        loaders = [getattr(m, f"{name}_dataloader")() for m in (ours,
+                                                                 theirs)]
+        assert [(lo.shuffle, lo.pad_mode, lo.batch_size, lo.seed)
+                for lo in loaders] == [(split == "train", "cycle" if
+                                        split == "train" else "zero",
+                                        BATCH, 3)] * 2
+        if split != "train":
+            for a, b in zip(loaders[0], loaders[1]):
+                assert a.n_valid == b.n_valid
+                np.testing.assert_array_equal(a.x.numpy(), np.asarray(b.x))
+                np.testing.assert_array_equal(a.y.numpy(), np.asarray(b.y))
+        loaders[0].close()
 
 
 @pytest.mark.parametrize("pad_mode", ["cycle", "zero"])

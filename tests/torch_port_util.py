@@ -205,3 +205,67 @@ def load_flax_block(module, name_map, params, stats=None):
                 module.get_buffer(target).copy_(value)
             else:
                 module.get_parameter(target).copy_(value)
+
+
+# ------------------------------------------------------------ GAN training
+def gan_batches(seed, n, size=32, batch=2):
+    """``n`` (x, y) pairs: y is the sign of a noisy inversion of x, every
+    pixel saturated at -1 or 1 (0 or 255 in the PNG). The L1 term's gradient
+    flips sign where a prediction crosses its target, so with targets inside
+    (-1, 1) float noise in a prediction flips some pixels' gradients; a tanh
+    output never reaches a saturated target."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        x = rng.uniform(-1, 1, (batch, size, size, 1)).astype(np.float32)
+        y = np.where(-0.8 * x + rng.normal(0, 0.2, x.shape) > 0, 1.0, -1.0)
+        out.append((x, y.astype(np.float32)))
+    return out
+
+
+def discriminator_numpy_params(seed, size=32):
+    """numpy-made ``params`` of the JAX package's PatchGAN over a pair of
+    one-channel images."""
+    import jax
+    import jax.numpy as jnp
+    from pai_tpu.models import Discriminator
+
+    zeros = jnp.zeros((1, size, size, 1))
+    abstract = jax.eval_shape(
+        lambda: Discriminator().init(jax.random.key(0), zeros, zeros))
+    return numpy_tree_like(abstract["params"], np.random.default_rng(seed),
+                           "params")
+
+
+def port_gan_models(params, stats, dparams, mults, dropout=0.0):
+    """The port's Pix2Pix (in train mode) and PatchGAN carrying the JAX
+    package's numpy trees."""
+    from pai_tpu_torch.interop import state_dict_from_jax
+    from pai_tpu_torch.models import Discriminator, build_generator
+
+    gen = build_generator("pix2pix", channel_mults=mults, dropout=dropout,
+                          generator=torch.Generator().manual_seed(0))
+    hp = {"channel_mults": ",".join(str(m) for m in mults)}
+    gen.load_state_dict(state_dict_from_jax("pix2pix", params, stats, hp),
+                        strict=True)
+    disc = Discriminator(generator=torch.Generator().manual_seed(0))
+    disc.load_state_dict(state_dict_from_jax("discriminator", dparams, {},
+                                             {}), strict=True)
+    return gen, disc
+
+
+def jax_gan_state(params, stats, dparams, loss_type):
+    """The JAX package's GAN train state over those trees, EMA on (the
+    discriminator and its Adam chain only for ``gan``)."""
+    import jax.numpy as jnp
+    from pai_tpu.train.ema import init_ema
+    from pai_tpu.train.state import GanTrainState, gan_optimizer
+
+    gan = loss_type == "gan"
+    d = dparams if gan else None
+    return GanTrainState(
+        step=jnp.zeros((), jnp.int32), g_params=params, g_stats=stats,
+        g_opt=gan_optimizer().init(params), d_params=d,
+        d_opt=gan_optimizer().init(d) if gan else None,
+        ema=init_ema({"generator": params,
+                      "discriminator": d if gan else {}}))
