@@ -7,8 +7,10 @@ Drives the port's main paths once each at full width — the Pix2Pix report
 (channel mults 1,2,4,8,8,8,8,8 — 54.4 M parameters, 256x256 grayscale),
 Palette sampling (the CLI-default diffusion UNet: the same mults at inner
 width 128, attention at downsample rates 8,4,2, 100-step DDPM chain),
-Palette training (float32, and a bf16-mixed step) and GAN training (Pix2Pix
-with the PatchGAN, the train CLI's default) — through the entry points
+Palette training (float32, and a bf16-mixed step), GAN training (Pix2Pix
+with the PatchGAN, the train CLI's default) and the other generator
+families' training and report (TransUNet through the CLIs) — through the
+entry points
 a user calls, and holds every hand-written kernel
 against its plain PyTorch version on the card. It imports ``pai_tpu_torch`` only (no JAX),
 builds the kernels from the sources in this checkout, needs no network and
@@ -78,6 +80,17 @@ for). Phases, each printing one JSON line:
    their backward (the plain version's, as the JAX package's
    ``custom_vjp``); a small GAN step of every loss type on the card against
    the CPU; one bf16-mixed GAN step.
+9. ``families`` — the other six generator families (attention U-Net, the
+   four residual U-Nets, TransUNet) at their published widths, float32,
+   batch 8: per family the parameter count against the reference's, an
+   eval forward, three warm lean ``gan`` steps timed (CUDA events, host
+   enqueue) and one profiled (device busy time, the convolutions' share,
+   the top kernels), and a small ``gan`` step card vs CPU; the max pool's
+   gradient at tied windows card vs CPU; then ``pai_tpu_torch.main -m
+   trans_unet --channel-mults 1,2,2,4,4`` (1.03 B parameters) through 10
+   steps, a validation, best and last slots, ``--resume`` to a second
+   epoch, and the report CLI on the best slot, with ``ssim_scalar`` counted
+   on the training path and ``ssim_map`` on the report.
 
 Then one line ``{"kernels": [...]}`` with, per kernel, its route, source, the
 TPU kernel it replaces, its launches in phase 3, its error against the plain
@@ -2150,15 +2163,27 @@ PATCHGAN_PARAMETERS = 2_763_712
 GAN_SLOT_BYTES = 3 * 4 * (PIX2PIX_PARAMETERS + PATCHGAN_PARAMETERS)
 
 
-def gan_small_models(seed):
-    """A small Pix2Pix and the PatchGAN on the CPU with every parameter and
-    running statistic drawn from ``seed`` (biases too, so that no tensor is
-    at the scale of one Adam step)."""
-    from pai_tpu_torch.models import Discriminator, build_generator
+def small_generator(family, generator):
+    """A small generator of ``family`` at 32x32: mults (1, 2, 4); TransUNet
+    at (1, 1) with a 2-layer ViT of width 1,024."""
+    from pai_tpu_torch.models import build_generator
+    from pai_tpu_torch.models.trans_unet import TransUnet
+
+    if family == "trans_unet":
+        return TransUnet(image_size=32, channel_mults=(1, 1), vit_layers=2,
+                         generator=generator)
+    return build_generator(family, channel_mults=(1, 2, 4),
+                           generator=generator)
+
+
+def gan_small_models(seed, family="pix2pix"):
+    """A small generator of ``family`` and the PatchGAN on the CPU with
+    every parameter and running statistic drawn from ``seed`` (biases too,
+    so that no tensor is at the scale of one Adam step)."""
+    from pai_tpu_torch.models import Discriminator
 
     gen = torch.Generator().manual_seed(seed)
-    model = build_generator("pix2pix", channel_mults=(1, 2, 4),
-                            generator=gen)
+    model = small_generator(family, gen)
     disc = Discriminator(generator=gen)
     with torch.no_grad():
         for net in (model, disc):
@@ -2173,10 +2198,14 @@ def gan_small_models(seed):
     return model, disc
 
 
-def gan_card_vs_cpu(device):
+def gan_card_vs_cpu(device, family="pix2pix", loss_types=GAN_LOSS_TYPES,
+                    large=1e-3):
     """One GAN step of each loss type on the card and on the CPU from the
     same weights and batch (true float32 both): loss, d_loss, prediction,
-    parameters and running statistics after the step, and the launches."""
+    parameters and running statistics after the step, and the launches.
+    ``large``: the share of its tensor's largest gradient from which an
+    element's parameter is held to ``GAN_CARD_CPU_TOL`` (every element is
+    held to two learning rates)."""
     import copy
 
     from pai_tpu_torch import kernels
@@ -2188,8 +2217,8 @@ def gan_card_vs_cpu(device):
     y = np.where(-0.8 * x + rng.normal(0, 0.2, x.shape) > 0, 1.0,
                  -1.0).astype(np.float32)
     out = {}
-    for loss_type in GAN_LOSS_TYPES:
-        cpu_nets = gan_small_models(3)
+    for loss_type in loss_types:
+        cpu_nets = gan_small_models(3, family)
         results = {}
         for where in ("cuda", "cpu"):
             nets = [copy.deepcopy(n).to(where).to(
@@ -2211,8 +2240,8 @@ def gan_card_vs_cpu(device):
                 tensors.update({f"{tag}.{k}": v.detach().cpu()
                                 for k, v in net.state_dict().items()})
                 # after one step Adam's first moment is half the gradient
-                grads[tag] = {f"{tag}.{k}": opt.state[p]["exp_avg"].abs()
-                              .cpu() for k, p in net.named_parameters()} \
+                grads[tag] = {f"{tag}.{k}": opt.state[p]["exp_avg"].cpu()
+                              for k, p in net.named_parameters()} \
                     if opt else {}
             results[where] = ({k: float(v) for k, v in metrics.items()},
                               preds[0], tensors, launched, grads)
@@ -2221,10 +2250,20 @@ def gan_card_vs_cpu(device):
                 for k in cpu[0]}
         errs["prediction"] = float((card[1] - cpu[1]).abs().max()
                                    / cpu[1].abs().max())
-        grads = {k: v for net in cpu[4].values() for k, v in net.items()}
+        grads = {k: v.abs() for net in cpu[4].values()
+                 for k, v in net.items()}
         noise = {name for net in cpu[4].values() if net
                  for name, g in net.items()
-                 if g.max() < 1e-3 * max(v.max() for v in net.values())}
+                 if g.abs().max() < 1e-3 * max(v.abs().max()
+                                               for v in net.values())}
+        # the gradients themselves, read (not gated): the largest
+        # difference over each tensor's largest, and its L2 ratio
+        card_g = {k: v for net in card[4].values() for k, v in net.items()}
+        grad_err = {name: (float((card_g[name] - g).abs().max()
+                                 / g.abs().max()),
+                           float((card_g[name] - g).norm() / g.norm()))
+                    for net in cpu[4].values() for name, g in net.items()
+                    if name not in noise}
         worst, worst_name = 0.0, None
         for name, want in cpu[2].items():
             if name.endswith("num_batches_tracked"):
@@ -2236,7 +2275,7 @@ def gan_card_vs_cpu(device):
                       " > two learning rates")
                 if name in noise:
                     continue
-                diff = diff[grads[name] >= 1e-3 * grads[name].max()]
+                diff = diff[grads[name] >= large * grads[name].max()]
             err = float(diff.max() / want.abs().max())
             if err > worst:
                 worst, worst_name = err, name
@@ -2249,7 +2288,12 @@ def gan_card_vs_cpu(device):
         want = 2 if loss_type in ("ssim", "ssim+psnr") else 1
         check(card[3]["ssim_scalar"] == want and card[3]["ssim_map"] == 0,
               f"GAN step {loss_type} on the card launched {card[3]}")
+        worst_grad = max(grad_err, key=lambda k: grad_err[k][0])
         out[loss_type] = {"max_rel_err": errs, "worst_tensor": worst_name,
+                          "gradient_max_rel_err": grad_err[worst_grad][0],
+                          "gradient_worst_tensor": worst_grad,
+                          "gradient_l2_rel_err": max(
+                              v[1] for v in grad_err.values()),
                           "float_noise_gradients": sorted(noise),
                           "loss_cuda": card[0]["loss"],
                           "loss_cpu": cpu[0]["loss"]}
@@ -2567,8 +2611,268 @@ def phase_gan(device, workdir):
     return launches
 
 
+# The other generator families at their published widths (float32, batch
+# 8, 256x256): parameter counts from tests/test_param_parity.py.
+FAMILY_PARAMETERS = {"attention_unet": 55_556_662, "res18_unet": 55_667_137,
+                     "res50_unet": 7_814_593, "resv2_unet": 55_677_121,
+                     "resnext_unet": 3_954_817, "trans_unet": 1_026_822_465}
+FAMILY_MULTS = {name: FULL_MULTS for name in FAMILY_PARAMETERS}
+FAMILY_MULTS["trans_unet"] = "1,2,2,4,4"
+FAMILY_TIMED_STEPS = 3
+# the residual U-Nets' small step, card vs CPU: a ReLU input or a max-pool
+# window within float noise of a tie at full resolution moves a gradient
+# element by a few percent of its tensor's largest (the CPU tests'
+# RES_MOMENT_TOL, tests/test_torch_port_families_train.py; ResUNet-18's
+# small step read 7.8e-2 card vs CPU on an H100), so their parameters are
+# held to GAN_CARD_CPU_TOL where the gradient is at least this share of the
+# largest, where Adam's first step cannot change sign; every element to two
+# learning rates, as for every family
+RES_LARGE_GRADIENT = 0.2
+# float32 weights and Adam's two moments of both networks (no EMA)
+TRANS_SLOT_BYTES = 3 * 4 * (FAMILY_PARAMETERS["trans_unet"]
+                            + PATCHGAN_PARAMETERS)
+
+
+def family_steps(device, family, x, y):
+    """One family at its published width: the parameter count, an eval
+    forward, and ``FAMILY_TIMED_STEPS`` warm lean ``gan`` steps (CUDA-event
+    ms and host enqueue ms each; device busy time of one more, profiled)."""
+    import gc
+
+    from pai_tpu_torch import kernels
+    from pai_tpu_torch.models import Discriminator, build_generator
+    from pai_tpu_torch.train import steps as steps_lib
+    from pai_tpu_torch.utils.flops import parameter_count
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_generator(family, channel_mults=[
+        int(m) for m in FAMILY_MULTS[family].split(",")], generator=gen,
+        device=device)
+    n_params = parameter_count(model)
+    check(n_params == FAMILY_PARAMETERS[family],
+          f"{family}: {n_params} parameters, the reference has "
+          f"{FAMILY_PARAMETERS[family]}")
+    with torch.inference_mode():
+        out = model.eval()(x)
+    check(tuple(out.shape) == tuple(x.shape) and bool(out.isfinite().all())
+          and float(out.abs().max()) <= 1.0,
+          f"{family}: eval forward {tuple(out.shape)}")
+    disc = Discriminator(generator=gen, device=device)
+    state = steps_lib.init_gan_state(model, disc, "gan", use_ema=False)
+    lean = steps_lib.make_gan_train_step(model, disc, "gan",
+                                         compute_metrics=False)
+    events, busy_ms, span_ms = device_profile(lambda: lean(state, x, y),
+                                              calls=1)
+    kernels.reset_launch_counts()
+    step_ms, enqueue_ms, losses = [], [], []
+    for _ in range(FAMILY_TIMED_STEPS):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        host = time.perf_counter()
+        start.record()
+        _, metrics = lean(state, x, y)
+        enqueue_ms.append((time.perf_counter() - host) * 1e3)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append((float(metrics["loss"]), float(metrics["d_loss"])))
+    check(all(np.isfinite(v) for pair in losses for v in pair),
+          f"{family}: losses {losses}")
+    check(not any(kernels.launch_counts.values()),
+          f"{family}: a lean gan step launched {kernels.launch_counts}")
+    conv = re.compile(r"conv|cudnn|sm90_|sm80_|xmma|implicit_gemm|wgrad|"
+                      r"dgrad|fprop|fft|nhwc", re.I)
+    conv_ms = sum(us for key, us in events.items() if conv.search(key)) / 1e3
+    top = sorted(events.items(), key=lambda kv: -kv[1])[:8]
+    entry = {"parameters": n_params, "channel_mults": FAMILY_MULTS[family],
+             "step_ms": step_ms, "step_ms_median": statistics.median(step_ms),
+             "step_enqueue_ms": enqueue_ms, "step_device_ms": busy_ms,
+             "step_device_span_ms": span_ms, "conv_device_ms": conv_ms,
+             "conv_share": conv_ms / busy_ms if busy_ms else None,
+             "top_device_events_us": [[k[:80], us] for k, us in top],
+             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+             "losses": losses}
+    del model, disc, state, lean, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return entry
+
+
+def max_pool_ties_card_vs_cpu(device):
+    """``max_pool_2x``'s backward on a ``channels_last`` CUDA tensor holding
+    the zeros of a ReLU (tied windows): the gradient goes to the same
+    element as on the CPU, the first of the window."""
+    from pai_tpu_torch.ops import max_pool_2x
+
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(np.maximum(rng.normal(0, 1, (2, 64, 32, 32)), 0)
+                         .astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(2, 64, 16, 16)).astype(np.float32))
+    grads = {}
+    for where in ("cuda", "cpu"):
+        xt = x.to(where).contiguous(memory_format=torch.channels_last)
+        xt.requires_grad_(True)
+        (max_pool_2x(xt) * g.to(where)).sum().backward()
+        grads[where] = xt.grad.cpu()
+    windows = x.reshape(2, 64, 16, 2, 16, 2)
+    tied = int((windows == 0).all(dim=(3, 5)).sum())
+    check(tied > 0, "no tied window in the max-pool check")
+    check(torch.equal(grads["cuda"], grads["cpu"]),
+          "max_pool_2x's gradient at tied windows differs card vs CPU")
+    return {"tied_windows": tied, "equal": True}
+
+
+def phase_families(device, workdir):
+    """The six other generator families at their published widths: per
+    family the parameter count, an eval forward, timed warm lean ``gan``
+    steps, and a small ``gan`` step card vs CPU; then ``python -m
+    pai_tpu_torch.main smoke -m trans_unet --channel-mults 1,2,2,4,4
+    --loss-type gan --batch-size 8 --precision 32`` through 10 steps, a
+    validation, best and last slots and ``--resume`` to a second epoch, and
+    the report CLI on the best slot. Returns the launch counts of the
+    TransUNet CLI's training run and of its report."""
+    import gc
+
+    from pai_tpu_torch import kernels, report
+    from pai_tpu_torch import main as train_main
+    from pai_tpu_torch.data import BatchLoader, ImageDataset
+    from pai_tpu_torch.train import loop
+    from pai_tpu_torch.utils import checkpoint as ckpt_lib
+
+    free = shutil.disk_usage(workdir).free
+    need = 3 * TRANS_SLOT_BYTES + 2 * 10 ** 9
+    check(free >= need, f"{free / 1e9:.1f} GB free under {workdir}: the "
+          f"families phase writes a best and a last TransUNet slot of "
+          f"~{TRANS_SLOT_BYTES / 1e9:.1f} GB and rewrites last beside "
+          f"itself, {need / 1e9:.1f} GB in all")
+    train = write_pairs(os.path.join(workdir, "train"), GAN_TRAIN_IMAGES, 5)
+    val = write_pairs(os.path.join(workdir, "val"), GAN_VAL_IMAGES, 6)
+    loader = BatchLoader(ImageDataset(train, SIZE), GAN_BATCH, shuffle=True,
+                         pad_mode="cycle", device="cuda")
+    batch = next(iter(loader))
+    loader.close()
+
+    families, card_cpu = {}, {}
+    for family in FAMILY_PARAMETERS:
+        families[family] = family_steps(device, family, batch.x, batch.y)
+        large = RES_LARGE_GRADIENT if family.startswith("res") else 1e-3
+        card_cpu[family] = gan_card_vs_cpu(device, family, ("gan",),
+                                           large)["gan"]
+    ties = max_pool_ties_card_vs_cpu(device)
+
+    # ---- the TransUNet CLI: the main path of the phase, counted ----------
+    logs, ckpts = (os.path.join(workdir, d) for d in ("flogs", "fckpt"))
+    argv = ["smoke", "-d", train, "-vd", val, "-m", "trans_unet",
+            "--channel-mults", FAMILY_MULTS["trans_unet"], "--loss-type",
+            "gan", "--batch-size", str(GAN_BATCH), "--val-epochs", "1",
+            "--precision", "32", "--device", "cuda", "--log-dir", logs,
+            "--ckpt-dir", ckpts]
+    saves, validations = [], []
+    real_write = ckpt_lib._write_slot
+    real_validate = loop.Trainer.validate
+
+    def timed_write(slot_dir, flat, meta):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = real_write(slot_dir, flat, meta)
+        saves.append({"slot": os.path.basename(slot_dir),
+                      "seconds": time.perf_counter() - start,
+                      "bytes": os.path.getsize(os.path.join(slot_dir,
+                                                            "state.pt"))})
+        return out
+
+    def timed_validate(self, state, epoch):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = real_validate(self, state, epoch)
+        torch.cuda.synchronize()
+        validations.append(time.perf_counter() - start)
+        return out
+
+    ckpt_lib._write_slot = timed_write
+    loop.Trainer.validate = timed_validate
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        start = time.perf_counter()
+        summary = train_main.main(argv + ["--epochs", "1"])
+        torch.cuda.synchronize()
+        fit_seconds = time.perf_counter() - start
+        train_launches = dict(kernels.launch_counts)
+        peak_fit = torch.cuda.max_memory_allocated()
+        # ---- end of the counted window -------------------------------
+        gc.collect()
+        torch.cuda.empty_cache()
+        start = time.perf_counter()
+        resumed = train_main.main(argv + ["--epochs", "2", "--resume"])
+        torch.cuda.synchronize()
+        resume_seconds = time.perf_counter() - start
+    finally:
+        ckpt_lib._write_slot = real_write
+        loop.Trainer.validate = real_validate
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    n_steps = GAN_TRAIN_IMAGES // GAN_BATCH
+    n_val = GAN_VAL_IMAGES // GAN_BATCH
+    check(summary["steps"] == n_steps and resumed["steps"] == 2 * n_steps,
+          f"TransUNet CLI: steps {summary['steps']}, then {resumed['steps']}")
+    check(all(np.isfinite(summary[k]) for k in ("val_ssim", "val_psnr",
+                                                  "val_rmse")),
+          f"TransUNet validation metrics: {summary}")
+    check(train_launches["ssim_scalar"] == n_val + 1,
+          f"ssim_scalar launched {train_launches['ssim_scalar']} times on "
+          f"the TransUNet training path, expected {n_val + 1} (one log row, "
+          f"one per validation batch)")
+    check(sorted(os.listdir(os.path.join(ckpts, "smoke"))) == ["best",
+                                                               "last"],
+          "TransUNet checkpoint slots")
+    check([s["slot"] for s in saves[:3]] == ["best", "last", "last"],
+          f"TransUNet saves {saves}")
+
+    best = os.path.join(ckpts, "smoke", "best")
+    reports_dir = os.path.join(workdir, "freports")
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    stats = report.main(["trans", "-c", best, "-d", val, "-m", "trans_unet",
+                         "-bs", str(GAN_BATCH), "--device", "cuda",
+                         "--reports-dir", reports_dir])
+    torch.cuda.synchronize()
+    report_seconds = time.perf_counter() - start
+    report_launches = dict(kernels.launch_counts)
+    check(report_launches["ssim_map"] == SSIM_MAP_LAUNCHES_PER_BATCH * n_val,
+          f"the TransUNet slot's report launched {report_launches}")
+    check(stats["params"] == FAMILY_PARAMETERS["trans_unet"],
+          f"the report's parameter count {stats['params']}")
+    ssim = read_csv_column(os.path.join(reports_dir, "trans",
+                                        "ssim_per_image.csv"), "image,ssim")
+    check(len(ssim) == GAN_VAL_IMAGES and np.isfinite(ssim).all(),
+          "TransUNet report SSIM")
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "families", "batch_size": GAN_BATCH, "image_size": SIZE,
+          "precision": "32", "families": families, "card_vs_cpu": card_cpu,
+          "card_vs_cpu_limit": GAN_CARD_CPU_TOL,
+          "res_large_gradient": RES_LARGE_GRADIENT,
+          "max_pool_ties_card_vs_cpu": ties,
+          "trans_unet_cli": {
+              "fit_seconds": fit_seconds, "resume_seconds": resume_seconds,
+              "validation_seconds": validations, "checkpoint_saves": saves,
+              "max_memory_allocated_bytes_fit": peak_fit,
+              "train_launches": train_launches, "summary": summary,
+              "resumed": resumed, "report_seconds": report_seconds,
+              "report_launches": report_launches,
+              "report_mean_ssim": float(ssim.mean()),
+              "report_stats": stats}})
+    return train_launches, report_launches
+
+
 def kernels_line(cases, report_batch, launches, flash_cases,
-                 palette_launches, bwd_cases, train_launches, gan_launches):
+                 palette_launches, bwd_cases, train_launches, gan_launches,
+                 family_launches, family_report_launches):
     described = {
         "ssim_map": ("pai_tpu_torch/kernels/csrc/ssim.cu",
                      "pai_tpu/kernels/ssim_pallas.py:137"),
@@ -2599,8 +2903,12 @@ def kernels_line(cases, report_batch, launches, flash_cases,
                 for e in cases[name][name != "ssim_map":]]})
         if name == "ssim_map":
             out[-1]["launches_palette_path"] = palette_launches[name]
+            out[-1]["launches_trans_unet_report_path"] = \
+                family_report_launches[name]
         else:  # validation batches and log rows of GAN training
             out[-1]["launches_gan_training_path"] = gan_launches[name]
+            out[-1]["launches_trans_unet_training_path"] = \
+                family_launches[name]
     main = flash_cases[0]  # (2,4,16384,64): the longer of the Palette path's
     out.append({
         "name": "flash_fwd", "route": "cuda",
@@ -2707,6 +3015,9 @@ def main():
         timed("bf16", phase_bf16, device, workdir)
     with tempfile.TemporaryDirectory(prefix="pai_smoke_gan_") as workdir:
         gan_launches = timed("gan", phase_gan, device, workdir)
+    with tempfile.TemporaryDirectory(prefix="pai_smoke_families_") as workdir:
+        family_launches, family_report_launches = timed(
+            "families", phase_families, device, workdir)
     for name in ("ssim_map", "ssim_scalar"):
         check(launches[name] > 0,
               f"kernel {name} was not launched on the Pix2Pix path")
@@ -2715,11 +3026,16 @@ def main():
               f"kernel {name} was not launched on the Palette path")
     check(gan_launches["ssim_scalar"] > 0,
           "kernel ssim_scalar was not launched on the GAN training path")
+    check(family_launches["ssim_scalar"] > 0,
+          "kernel ssim_scalar was not launched on the TransUNet training "
+          "path")
+    check(family_report_launches["ssim_map"] > 0,
+          "kernel ssim_map was not launched on the TransUNet report path")
 
     emit({"phase": "seconds", **seconds})
     emit(kernels_line(cases, report_batch, launches, flash_cases,
                       palette_launches, bwd_cases, train_launches,
-                      gan_launches))
+                      gan_launches, family_launches, family_report_launches))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

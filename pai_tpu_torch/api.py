@@ -8,12 +8,13 @@ of ``pai_tpu/api.py``.
     summary = model.fit("run1", "train.yaml", "val.yaml", epochs=10)
 
 The five class names and their constructor vocabulary are those of the JAX
-package. Ported so far: ``Pix2Pix`` and ``Palette`` with ``fit`` (train
-with ``train.loop.Trainer`` and adopt the run's ``last`` weights),
-``load_from_checkpoint`` (an evaluation slot or a training slot) and
-``predict``/``__call__`` (Palette's runs the 100-step DDPM chain). The other
-three classes raise ``NotImplementedError`` naming the ROADMAP item that
-brings them.
+package: ``Pix2Pix``, ``AttentionUnetGAN``, ``ResUnetGAN`` (``res_type`` "18",
+"50", "v2" or "next" selects ``res{type}_unet``), ``TransUnetGAN`` and
+``Palette``, each with ``fit`` (train with ``train.loop.Trainer`` and adopt
+the run's ``last`` weights), ``load_from_checkpoint`` (an evaluation slot or
+a training slot; the family is the slot's) and ``predict``/``__call__``
+(Palette's runs the 100-step DDPM chain). ``from_lightning_checkpoint`` is
+not ported (ROADMAP.md Queue A item 6).
 """
 
 from __future__ import annotations
@@ -30,7 +31,6 @@ class _Experiment:
     """Shared engine-facing logic for the five public classes."""
 
     model_name: str = ""
-    _roadmap_item: Optional[str] = None  # set on classes not ported yet
 
     def __init__(self, in_channels: int = 1, out_channels: int = 1,
                  channel_mults: Sequence[int] = (1, 2, 4, 8, 8, 8, 8, 8),
@@ -40,7 +40,6 @@ class _Experiment:
                  precision: str = "32", image_size: int = 256,
                  res_type: Optional[str] = None,
                  device: Union[str, torch.device] = "cuda"):
-        self._require_ported()
         if res_type is not None:
             self.model_name = f"res{res_type}_unet"
         self.hparams: Dict = dict(
@@ -56,13 +55,6 @@ class _Experiment:
         )
         self.device = resolve_device(device)
         self._module = None
-
-    @classmethod
-    def _require_ported(cls) -> None:
-        if cls._roadmap_item is not None:
-            raise NotImplementedError(
-                f"{cls.__name__} is not ported to pai_tpu_torch yet: "
-                f"ROADMAP.md {cls._roadmap_item}")
 
     @property
     def image_size(self) -> int:
@@ -95,9 +87,9 @@ class _Experiment:
         from pai_tpu_torch.restore import rebuild_eval_model
         from pai_tpu_torch.utils.checkpoint import load_checkpoint
 
-        cls._require_ported()
         state_dict, meta = load_checkpoint(str(path))
-        # the checkpoint's hyperparameters are authoritative
+        # the checkpoint's hyperparameters are authoritative (a ResUnetGAN
+        # slot knows its block type)
         h = dict(TRAIN_DEFAULTS, **meta["hparams"])
         obj = cls.__new__(cls)
         obj.model_name = h["model"]
@@ -132,17 +124,14 @@ class Pix2Pix(_Experiment):
 
 class AttentionUnetGAN(_Experiment):
     model_name = "attention_unet"
-    _roadmap_item = "Queue A item 5 (other generator families)"
 
 
 class ResUnetGAN(_Experiment):
     model_name = "res18_unet"  # default; res_type kwarg selects the block
-    _roadmap_item = "Queue A item 5 (other generator families)"
 
 
 class TransUnetGAN(_Experiment):
     model_name = "trans_unet"
-    _roadmap_item = "Queue A item 5 (other generator families)"
 
 
 class Palette(_Experiment):

@@ -14,21 +14,25 @@ names and layouts. This module maps one to the other on numpy arrays:
   ``num_batches_tracked``, which torch's BatchNorm owns and JAX does not).
 
 The trees are taken and returned as nested dicts of numpy arrays (anything
-``np.asarray`` accepts), so this module imports no JAX. Pix2Pix, the PatchGAN
-(``model_name="discriminator"``; no ``batch_stats``) and Palette (the
-guided_diffusion UNet, whose block numbering is recomputed from
-``channel_mults`` and ``attention_res``) so far; each later slice adds its
-family's name map here.
+``np.asarray`` accepts), so this module imports no JAX. Every generator
+family of the registry has its name map, built from ``channel_mults`` (and
+for Palette, the guided_diffusion UNet, ``attention_res``), and so has the
+PatchGAN (``model_name="discriminator"``; no ``batch_stats``). TransUNet's
+ViT has the registry's ``VIT_LAYERS`` layers; a model built with fewer maps
+through the same table.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterator, Mapping, Sequence, Tuple
+from typing import (Callable, Dict, Iterable, Iterator, Mapping, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
 
 from pai_tpu_torch.config import parse_int_list
+from pai_tpu_torch.models.registry import RES_TYPES
+from pai_tpu_torch.models.trans_unet import VIT_LAYERS
 
 _BN_LEAF = {"scale": "weight", "bias": "bias",
             "mean": "running_mean", "var": "running_var"}
@@ -74,85 +78,161 @@ def _set_path(tree: Dict, path: Tuple[str, ...], value) -> None:
     tree[path[-1]] = value
 
 
-def _conv_name(mod: str, leaf: str, kind: str) -> Tuple[str, str]:
-    return (f"{mod}.weight", kind) if leaf == "kernel" else (f"{mod}.bias", "1d")
+# --------------------------------------------------------------------------
+# name tables: (flax module path, torch module, what it is) -> every leaf
+# --------------------------------------------------------------------------
+# what -> (flax leaf path under the module, torch leaf, tensor kind). The JAX
+# package wraps its BatchNorm, Dense and LayerNorm in modules of its own,
+# hence the inner ``BatchNorm_0`` / ``Dense_0`` / ``LayerNorm_0``; ``proj``
+# is a bare flax Dense; ``in_proj`` is torch ``nn.MultiheadAttention``'s
+# packed in-projection; ``raw`` is a bare parameter.
+_LEAVES = {
+    "conv": ((("kernel",), "weight", "conv"), (("bias",), "bias", "1d")),
+    "convt": ((("kernel",), "weight", "convt"), (("bias",), "bias", "1d")),
+    "bn": tuple((("BatchNorm_0", leaf), name, "1d")
+                for leaf, name in _BN_LEAF.items()),
+    "dense": ((("Dense_0", "kernel"), "weight", "linear"),
+              (("Dense_0", "bias"), "bias", "1d")),
+    "qkv_dense": ((("Dense_0", "kernel"), "weight", "qkv1d"),
+                  (("Dense_0", "bias"), "bias", "1d")),
+    "proj": ((("kernel",), "weight", "qkv1d"), (("bias",), "bias", "1d")),
+    "ln": ((("LayerNorm_0", "scale"), "weight", "1d"),
+           (("LayerNorm_0", "bias"), "bias", "1d")),
+    "in_proj": ((("Dense_0", "kernel"), "in_proj_weight", "linear"),
+                (("Dense_0", "bias"), "in_proj_bias", "1d")),
+    "raw": (((), None, "raw"),),
+}
+
+Entry = Tuple[Tuple[str, ...], str, str]
 
 
-def _pix2pix_name(path: Tuple[str, ...], n_levels: int) -> Tuple[str, str]:
-    """flax path -> (torch name, tensor kind). ``stem`` is ``encoders.0``;
-    ``enc_L`` is ``encoders.L.encode`` = [LeakyReLU, Conv, BN]; ``dec_i`` is
-    ``decoders.i.decode`` = [ReLU, ConvT, BN, Dropout]; ``head`` is the plain
-    ConvT ``decoders.{n_levels-1}``."""
-    top, leaf = path[0], path[-1]
-    if top == "stem":
-        return _conv_name("encoders.0", leaf, "conv")
-    if top == "head":
-        return _conv_name(f"decoders.{n_levels - 1}", leaf, "convt")
-    kind, index = top.rsplit("_", 1)
-    if kind == "enc":
-        base = f"encoders.{index}.encode"
-        if path[1] == "Conv_0":
-            return _conv_name(f"{base}.1", leaf, "conv")
-        return f"{base}.2.{_BN_LEAF[leaf]}", "1d"
-    if kind == "dec":
-        base = f"decoders.{index}.decode"
-        if path[1] == "ConvTranspose_0":
-            return _conv_name(f"{base}.1", leaf, "convt")
-        return f"{base}.2.{_BN_LEAF[leaf]}", "1d"
-    raise KeyError(f"not a Pix2PixUnet parameter path: {path}")
+def _tables(entries: Iterable[Entry]):
+    """``(by_path, by_name)``: flax leaf path -> (torch name, kind) and
+    torch name -> (tree, flax leaf path, kind). A table may hold leaves a
+    given model lacks (a bias-free convolution's bias, an identity skip's
+    projection): they are never looked up."""
+    by_path, by_name = {}, {}
+    for prefix, module, what in entries:
+        for leaf_path, leaf, kind in _LEAVES[what]:
+            path = prefix + leaf_path
+            name = module if leaf is None else f"{module}.{leaf}"
+            tree = "batch_stats" if path[-1] in ("mean", "var") else "params"
+            by_path[path] = (name, kind)
+            by_name[name] = (tree, path, kind)
+    return by_path, by_name
 
 
-def _pix2pix_path(name: str, n_levels: int
-                  ) -> Tuple[str, Tuple[str, ...], str]:
-    """torch name -> (tree, flax path, tensor kind); the inverse of
-    ``_pix2pix_name``. ``tree`` is "params" or "batch_stats"."""
-    parts = name.split(".")
-    group, index, leaf = parts[0], int(parts[1]), parts[-1]
-    conv_leaf = "kernel" if leaf == "weight" else "bias"
-    if len(parts) == 3:  # bare stem conv / head transposed conv
-        if group == "encoders" and index == 0:
-            return "params", ("stem", conv_leaf), \
-                "conv" if leaf == "weight" else "1d"
-        if group == "decoders" and index == n_levels - 1:
-            return "params", ("head", conv_leaf), \
-                "convt" if leaf == "weight" else "1d"
-        raise KeyError(f"not a Pix2PixUnet tensor name: {name}")
-    top = f"{'enc' if group == 'encoders' else 'dec'}_{index}"
-    member = int(parts[3])
-    if member == 1:
-        sub = "Conv_0" if group == "encoders" else "ConvTranspose_0"
-        kind = "conv" if group == "encoders" else "convt"
-        return "params", (top, sub, conv_leaf), \
-            kind if leaf == "weight" else "1d"
-    tree = "batch_stats" if leaf.startswith("running_") else "params"
-    return tree, (top, "BatchNorm_0", "BatchNorm_0", _BN_LEAF_INV[leaf]), "1d"
+def _pix2pix_entries(n_levels: int) -> Iterator[Entry]:
+    """``stem`` is ``encoders.0``; ``enc_L`` is ``encoders.L.encode`` =
+    [LeakyReLU, Conv, BN]; ``dec_i`` is ``decoders.i.decode`` = [ReLU, ConvT,
+    BN, Dropout]; ``head`` is the plain ConvT ``decoders.{n_levels-1}``."""
+    yield ("stem",), "encoders.0", "conv"
+    for level in range(1, n_levels):
+        yield (f"enc_{level}", "Conv_0"), f"encoders.{level}.encode.1", "conv"
+        yield (f"enc_{level}", "BatchNorm_0"), f"encoders.{level}.encode.2", \
+            "bn"
+    for i in range(n_levels - 1):
+        yield (f"dec_{i}", "ConvTranspose_0"), f"decoders.{i}.decode.1", \
+            "convt"
+        yield (f"dec_{i}", "BatchNorm_0"), f"decoders.{i}.decode.2", "bn"
+    yield ("head",), f"decoders.{n_levels - 1}", "convt"
 
 
-def _discriminator_name(path: Tuple[str, ...]) -> Tuple[str, str]:
-    """flax path -> (torch name, tensor kind) of the PatchGAN:
-    ``DiscriminatorBlock_i/Conv_0`` is ``discriminator.i.block.0``, the bare
-    head ``Conv_0`` is ``discriminator.4`` (no bias)."""
-    top, leaf = path[0], path[-1]
-    if top.startswith("DiscriminatorBlock_"):
-        index = top.rsplit("_", 1)[1]
-        return _conv_name(f"discriminator.{index}.block.0", leaf, "conv")
-    if top == "Conv_0" and leaf == "kernel":
-        return "discriminator.4.weight", "conv"
-    raise KeyError(f"not a Discriminator parameter path: {path}")
+def _attention_entries(n_levels: int) -> Iterator[Entry]:
+    """Pix2Pix's, plus the gates ``gate_j`` = ``attention_blocks.j``, each
+    of ``input_gate``, ``signal_gate`` and ``attention`` = [Conv, BN]."""
+    yield from _pix2pix_entries(n_levels)
+    for j in range(n_levels - 1):
+        for k, member in enumerate(("input_gate", "signal_gate",
+                                    "attention")):
+            base = f"attention_blocks.{j}.{member}"
+            yield (f"gate_{j}", member), f"{base}.0", "conv"
+            yield (f"gate_{j}", f"BatchNorm_{k}"), f"{base}.1", "bn"
 
 
-def _discriminator_path(name: str) -> Tuple[str, Tuple[str, ...], str]:
-    """torch name -> (tree, flax path, tensor kind); the inverse of
-    ``_discriminator_name``."""
-    parts = name.split(".")
-    kind = "conv" if parts[-1] == "weight" else "1d"
-    leaf = "kernel" if parts[-1] == "weight" else "bias"
-    if parts[:2] == ["discriminator", "4"] and leaf == "kernel":
-        return "params", ("Conv_0", "kernel"), kind
-    if parts[0] == "discriminator" and parts[2:4] == ["block", "0"]:
-        return "params", (f"DiscriminatorBlock_{parts[1]}", "Conv_0",
-                          leaf), kind
-    raise KeyError(f"not a Discriminator tensor name: {name}")
+# flax member of a residual block -> its torch module, per block type (the
+# flax modules are numbered in call order: the branch, then the skip)
+_RES_MEMBERS = {
+    "18": {"Conv_0": "conv_block.0", "BatchNorm_0": "conv_block.1",
+           "Conv_1": "conv_block.3", "BatchNorm_1": "conv_block.4",
+           "Conv_2": "conv_skip.0", "BatchNorm_2": "conv_skip.1"},
+    "50": {"Conv_0": "conv_block.0", "BatchNorm_0": "conv_block.1",
+           "Conv_1": "conv_block.3", "BatchNorm_1": "conv_block.4",
+           "Conv_2": "conv_block.6", "BatchNorm_2": "conv_block.7",
+           "Conv_3": "conv_skip.0", "BatchNorm_3": "conv_skip.1"},
+    "v2": {"BatchNorm_0": "conv_block.0", "Conv_0": "conv_block.2",
+           "BatchNorm_1": "conv_block.3", "Conv_1": "conv_block.5",
+           "BatchNorm_2": "conv_skip.0", "Conv_2": "conv_skip.2"},
+}
+_RES_MEMBERS["next"] = _RES_MEMBERS["50"]
+
+
+def _members(prefix: Tuple[str, ...], block: str, members: Mapping
+             ) -> Iterator[Entry]:
+    for flax_name, torch_name in members.items():
+        yield prefix + (flax_name,), f"{block}.{torch_name}", \
+            "conv" if flax_name.startswith("Conv") else "bn"
+
+
+def _res_entries(n_levels: int, res_type: str) -> Iterator[Entry]:
+    """``stem`` is ``in_conv``, ``head`` ``out.0``; the blocks ``enc_L`` =
+    ``encoders.L.encode.0``, ``dec_i`` = ``decoders.i.decode.0`` and
+    ``dec_final`` = ``decoders.{n_levels-1}.decode.0``."""
+    yield ("stem",), "in_conv", "conv"
+    yield ("head",), "out.0", "conv"
+    blocks = [(f"enc_{level}", f"encoders.{level}.encode.0")
+              for level in range(n_levels)]
+    blocks += [(f"dec_{i}", f"decoders.{i}.decode.0")
+               for i in range(n_levels - 1)]
+    blocks.append(("dec_final", f"decoders.{n_levels - 1}.decode.0"))
+    for top, block in blocks:
+        yield from _members((top,), block, _RES_MEMBERS[res_type])
+
+
+_TRANS_ENCODER = {"Conv_0": "decode.0", "BatchNorm_0": "decode.1",
+                  "Conv_1": "decode.3", "BatchNorm_1": "decode.4",
+                  "Conv_2": "decode.6", "BatchNorm_2": "decode.7",
+                  "Conv_3": "skip.0", "BatchNorm_3": "skip.1"}
+_TRANS_DECODER = {"Conv_0": "decode.0", "BatchNorm_0": "decode.1",
+                  "Conv_1": "decode.3", "BatchNorm_1": "decode.4"}
+_TRANS_LAYER = (("in_proj", "self_attn", "in_proj"),
+                ("out_proj", "self_attn.out_proj", "dense"),
+                ("ffn1", "linear1", "dense"), ("ffn2", "linear2", "dense"),
+                ("LayerNorm_0", "norm1", "ln"), ("LayerNorm_1", "norm2", "ln"))
+
+
+def _trans_entries(n_levels: int, vit_layers: int) -> Iterator[Entry]:
+    """``stem`` is ``in_conv``, ``head`` ``out.0``; ``enc_L`` =
+    ``encoders.L`` (the bias-free bottleneck ``decode`` and ``skip``);
+    ``dec_i`` = ``decoders.i``, ``dec_final`` = ``decoders.{n_levels-1}``;
+    ``vit`` = ``vit_bottleneck`` (``to_patch_embedding.{1,2,3}``,
+    ``pos_embedding``, ``layer_i`` = ``transformer.layers.i``)."""
+    yield ("stem",), "in_conv", "conv"
+    yield ("head",), "out.0", "conv"
+    for level in range(n_levels):
+        yield from _members((f"enc_{level}",), f"encoders.{level}",
+                            _TRANS_ENCODER)
+    for i, top in enumerate([f"dec_{i}" for i in range(n_levels - 1)]
+                            + ["dec_final"]):
+        yield from _members((top,), f"decoders.{i}", _TRANS_DECODER)
+    vit = "vit_bottleneck"
+    yield ("vit", "pos_embedding"), f"{vit}.pos_embedding", "raw"
+    yield ("vit", "LayerNorm_0"), f"{vit}.to_patch_embedding.1", "ln"
+    yield ("vit", "Dense_0"), f"{vit}.to_patch_embedding.2", "dense"
+    yield ("vit", "LayerNorm_1"), f"{vit}.to_patch_embedding.3", "ln"
+    for i in range(vit_layers):
+        for flax_name, torch_name, what in _TRANS_LAYER:
+            yield ("vit", f"layer_{i}", flax_name), \
+                f"{vit}.transformer.layers.{i}.{torch_name}", what
+
+
+def _discriminator_entries() -> Iterator[Entry]:
+    """``DiscriminatorBlock_i/Conv_0`` is ``discriminator.i.block.0``, the
+    bare head ``Conv_0`` is ``discriminator.4`` (no bias)."""
+    for i in range(4):
+        yield (f"DiscriminatorBlock_{i}", "Conv_0"), \
+            f"discriminator.{i}.block.0", "conv"
+    yield ("Conv_0",), "discriminator.4", "conv"
 
 
 # --------------------------------------------------------------------------
@@ -212,74 +292,62 @@ _GD_ATTN_SUB = {"norm": ("norm", "bn"), "qkv": ("qkv", "qkv_dense"),
                 "proj": ("proj_out", "proj")}
 
 
-def _palette_entries(top: str, block: str
-                     ) -> Iterator[Tuple[Tuple[str, ...], str, str]]:
-    """Every (flax path, torch name, tensor kind) one flax module of the UNet
-    can hold. The JAX package wraps its BatchNorm and Dense in modules of its
-    own, hence the ``BatchNorm_0`` / ``Dense_0`` path members; ``proj`` is a
-    bare flax Dense."""
-    def member(prefix, mod, what):
-        if what == "bn":
-            for leaf, name in _BN_LEAF.items():
-                yield prefix + ("BatchNorm_0", leaf), f"{mod}.{name}", "1d"
-            return
-        inner, kind = {"conv": ((), "conv"), "dense": (("Dense_0",), "linear"),
-                       "qkv_dense": (("Dense_0",), "qkv1d"),
-                       "proj": ((), "qkv1d")}[what]
-        yield prefix + inner + ("kernel",), f"{mod}.weight", kind
-        yield prefix + inner + ("bias",), f"{mod}.bias", "1d"
-
-    if top.startswith("cond_embed"):
-        yield from member((top,), block, "dense")
-    elif top in ("in_conv", "out_conv"):
-        yield from member((top,), block, "conv")
-    elif top == "out_norm":
-        yield from member((top,), block, "bn")
-    else:
-        subs = _GD_ATTN_SUB if "attn" in top else _GD_RES_SUB
-        for sub, (mod, what) in subs.items():
-            yield from member((top, sub), f"{block}.{mod}", what)
-
-
-def _palette_tables(hparams: Mapping):
-    index_map = _gd_index_map(parse_int_list(hparams["channel_mults"]),
-                              parse_int_list(hparams["attention_res"]))
-    by_path, by_name = {}, {}
-    for top, block in index_map.items():
-        for path, name, kind in _palette_entries(top, block):
-            tree = "batch_stats" if path[-1] in ("mean", "var") else "params"
-            by_path[path] = (name, kind)
-            by_name[name] = (tree, path, kind)
-    return by_path, by_name
+def _palette_entries(channel_mults: Sequence[int],
+                     attention_res: Sequence[int]) -> Iterator[Entry]:
+    for top, block in _gd_index_map(channel_mults, attention_res).items():
+        if top.startswith("cond_embed"):
+            yield (top,), block, "dense"
+        elif top in ("in_conv", "out_conv"):
+            yield (top,), block, "conv"
+        elif top == "out_norm":
+            yield (top,), block, "bn"
+        else:
+            subs = _GD_ATTN_SUB if "attn" in top else _GD_RES_SUB
+            for sub, (member, what) in subs.items():
+                yield (top, sub), f"{block}.{member}", what
 
 
 # --------------------------------------------------------------------------
 # both directions
 # --------------------------------------------------------------------------
+_MODULES = {"pix2pix": "Pix2PixUnet", "attention_unet": "AttentionUnet",
+            **{name: "ResUnet" for name in RES_TYPES},
+            "trans_unet": "TransUnet", "palette": "DiffusionUNet",
+            "discriminator": "Discriminator"}
+
+
+def _entries(model_name: str, hparams: Mapping) -> Iterator[Entry]:
+    if model_name == "discriminator":
+        return _discriminator_entries()
+    mults = parse_int_list(hparams["channel_mults"])
+    if model_name == "pix2pix":
+        return _pix2pix_entries(len(mults))
+    if model_name == "attention_unet":
+        return _attention_entries(len(mults))
+    if model_name in RES_TYPES:
+        return _res_entries(len(mults), RES_TYPES[model_name])
+    if model_name == "trans_unet":
+        return _trans_entries(len(mults), VIT_LAYERS)
+    if model_name == "palette":
+        return _palette_entries(mults,
+                                parse_int_list(hparams["attention_res"]))
+    raise ValueError(f"no name map for model '{model_name}'")
+
+
 def _mappers(model_name: str, hparams: Mapping
              ) -> Tuple[Callable, Callable]:
     """``(name_of(path) -> (torch name, kind), path_of(name) -> (tree, flax
     path, kind))`` for one family built with ``hparams``."""
-    if model_name == "pix2pix":
-        n_levels = len(parse_int_list(hparams["channel_mults"]))
-        return (lambda path: _pix2pix_name(path, n_levels),
-                lambda name: _pix2pix_path(name, n_levels))
-    if model_name == "discriminator":
-        return _discriminator_name, _discriminator_path
-    if model_name == "palette":
-        by_path, by_name = _palette_tables(hparams)
+    by_path, by_name = _tables(_entries(model_name, hparams))
+    module = _MODULES[model_name]
 
-        def lookup(table, key, what):
-            if key not in table:
-                raise KeyError(f"not a DiffusionUNet {what}: {key}")
-            return table[key]
+    def lookup(table, key, what):
+        if key not in table:
+            raise KeyError(f"not a {module} {what}: {key}")
+        return table[key]
 
-        return (lambda path: lookup(by_path, path, "parameter path"),
-                lambda name: lookup(by_name, name, "tensor name"))
-    raise NotImplementedError(
-        f"weights of '{model_name}' cannot be carried across yet: its "
-        "name map arrives with the slice that ports the model "
-        "(ROADMAP.md Queue A)")
+    return (lambda path: lookup(by_path, path, "parameter path"),
+            lambda name: lookup(by_name, name, "tensor name"))
 
 
 def state_dict_from_jax(model_name: str, params: Mapping,

@@ -5,12 +5,15 @@ Usage:
     python -m pai_tpu_torch.main <name> -d train.yaml -vd val.yaml
         [-m pix2pix] [--loss-type gan|ssim|psnr|ssim+psnr|mse]
 
-Ported: ``-m pix2pix`` (the default; the five losses, ``gan`` with the
-PatchGAN) and ``-m palette`` (DDPM training, validation with the 100-step
-chain), validated and checkpointed (best/last) on validation SSIM. Another
-model raises ``NotImplementedError`` (ROADMAP.md Queue A item 5), as do
-``--tp``/``--sp`` other than 1 and ``--fsdp`` (item 7). Runs on the card
-unless ``--device cpu`` is given.
+Every ``-m`` trains: ``pix2pix`` (the default), ``attention_unet``,
+``res18_unet``, ``res50_unet``, ``resv2_unet``, ``resnext_unet`` and
+``trans_unet`` under the five losses (``gan`` with the PatchGAN; TransUNet
+needs a mults list its ViT can cut into patches, e.g. ``--channel-mults
+1,2,2,4,4``), and ``palette`` (DDPM training, validation with the 100-step
+chain), validated and checkpointed (best/last) on validation SSIM.
+``--tp``/``--sp`` other than 1 and ``--fsdp`` raise ``NotImplementedError``
+(ROADMAP.md Queue A item 7). Runs on the card unless ``--device cpu`` is
+given.
 """
 
 import argparse

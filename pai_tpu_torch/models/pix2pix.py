@@ -129,6 +129,12 @@ class Pix2PixUnet(nn.Module):
             feats.pop()  # the innermost feature map is not used as a skip
             for i, decoder in enumerate(self.decoders):
                 if i != 0:
-                    h = torch.cat([h, feats.pop()], dim=1)
+                    h = torch.cat([h, self.skip(i, feats.pop(), h)], dim=1)
                 h = decoder(h)
         return torch.tanh(h.float()).permute(0, 2, 3, 1)
+
+    def skip(self, i: int, feature: torch.Tensor, h: torch.Tensor
+             ) -> torch.Tensor:
+        """What decoder ``i`` (> 0) reads beside ``h``: here the encoder
+        ``feature`` as it is; the attention U-Net gates it."""
+        return feature

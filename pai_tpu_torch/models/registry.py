@@ -10,8 +10,11 @@ from typing import Optional, Sequence
 
 import torch
 
+from pai_tpu_torch.models.attention_unet import AttentionUnet
 from pai_tpu_torch.models.diffusion_unet import DiffusionUNet
 from pai_tpu_torch.models.pix2pix import Pix2PixUnet
+from pai_tpu_torch.models.res_unet import ResUnet
+from pai_tpu_torch.models.trans_unet import TransUnet
 
 GENERATOR_NAMES = (
     "pix2pix",
@@ -24,14 +27,11 @@ GENERATOR_NAMES = (
     "palette",
 )
 
-# Where ROADMAP.md queues each family that is not ported yet.
-_QUEUED = {
-    "attention_unet": "Queue A item 5 (other generator families)",
-    "res18_unet": "Queue A item 5 (other generator families)",
-    "res50_unet": "Queue A item 5 (other generator families)",
-    "resv2_unet": "Queue A item 5 (other generator families)",
-    "resnext_unet": "Queue A item 5 (other generator families)",
-    "trans_unet": "Queue A item 5 (other generator families)",
+RES_TYPES = {
+    "res18_unet": "18",
+    "res50_unet": "50",
+    "resv2_unet": "v2",
+    "resnext_unet": "next",
 }
 
 
@@ -49,22 +49,27 @@ def build_generator(
     device=None,
 ):
     """The generator module for a CLI model name, with the JAX function's
-    arguments plus the init ``generator`` and the ``device`` to build on."""
+    arguments plus the init ``generator`` and the ``device`` to build on.
+    TransUNet takes ``image_size`` (its ViT's number of patches) and raises
+    ``ValueError`` where its innermost map cannot be cut into patches."""
+    mults = tuple(channel_mults)
+    common = dict(in_channels=in_channels, out_channels=out_channels,
+                  channel_mults=mults, dropout=dropout, dtype=dtype,
+                  generator=generator, device=device)
     if name == "pix2pix":
-        return Pix2PixUnet(in_channels=in_channels, out_channels=out_channels,
-                           channel_mults=tuple(channel_mults),
-                           dropout=dropout, dtype=dtype, generator=generator,
-                           device=device)
+        return Pix2PixUnet(**common)
+    if name == "attention_unet":
+        return AttentionUnet(**common)
+    if name in RES_TYPES:
+        return ResUnet(res_type=RES_TYPES[name], **common)
+    if name == "trans_unet":
+        return TransUnet(image_size=image_size, patch_size=4, num_heads=8,
+                         **common)
     if name == "palette":
         return DiffusionUNet(
             in_channels=in_channels * 2,
             out_channels=out_channels * 2 if learn_var else out_channels,
-            inner_channel=128, res_blocks=2,
-            channel_mults=tuple(channel_mults),
+            inner_channel=128, res_blocks=2, channel_mults=mults,
             attn_res=tuple(attention_res), num_heads=4, dropout=dropout,
             dtype=dtype, generator=generator, device=device)
-    if name in _QUEUED:
-        raise NotImplementedError(
-            f"model '{name}' is not ported to pai_tpu_torch yet: ROADMAP.md "
-            f"{_QUEUED[name]}")
     raise ValueError(f"Incorrect model name ({name})")

@@ -9,12 +9,16 @@ from pai_tpu_torch.ops.layers import (
     Dropout,
     Dropout2d,
     InstanceNorm,
+    LayerNorm,
     LeakyReLU,
     SiLU,
     avg_pool_2x,
     gamma_embedding,
+    gelu,
     leaky_relu,
+    max_pool_2x,
     round_to_compute,
+    sigmoid,
     silu,
     upsample_nearest_2x,
 )

@@ -20,26 +20,29 @@ NCHW.
 * ``Dropout`` — elementwise dropout (the diffusion ResBlock's); ``Dropout2d``
   — whole-channel dropout. Both draw from an explicit ``torch.Generator``;
   rate 0 is the identity.
-* ``leaky_relu`` / ``LeakyReLU`` — slope 0.2; ``silu`` / ``SiLU`` —
-  ``x * sigmoid(x)``.
-* ``avg_pool_2x`` / ``upsample_nearest_2x`` — ``nn.AvgPool2d(2)`` and nearest
+* ``LayerNorm`` — ``nn.LayerNorm`` (eps 1e-5, affine) over the last axis,
+  computed in float32 whatever the compute dtype, and cast back.
+* ``leaky_relu`` / ``LeakyReLU`` — slope 0.2; ``sigmoid``; ``silu`` /
+  ``SiLU`` — ``x * sigmoid(x)``; ``gelu`` — the exact (erf) GELU.
+* ``max_pool_2x`` / ``avg_pool_2x`` / ``upsample_nearest_2x`` —
+  ``nn.MaxPool2d(2)``, ``nn.AvgPool2d(2)`` and nearest
   ``nn.Upsample(scale_factor=2)`` on NCHW.
 * ``gamma_embedding`` — sinusoidal embedding of noise levels, [cos | sin].
 
 bfloat16 (``--precision bf16-mixed``: autocast, float32 parameters) rounds
 where the JAX package rounds when XLA runs it at ``dtype=bfloat16``: a
 convolution or dense product is rounded to bfloat16 before its bfloat16 bias
-is added (``_bias_after_rounding``); ``silu``, ``leaky_relu`` and
-``avg_pool_2x`` of a bfloat16 tensor round after every op XLA emits for them.
-Float32 takes one library call per layer, bias inside, as before.
+is added (``_bias_after_rounding``); ``sigmoid``, ``silu``, ``gelu``,
+``leaky_relu`` and ``avg_pool_2x`` of a bfloat16 tensor round after every op
+XLA emits for them. Float32 takes one library call per layer, bias inside,
+as before.
 
 Two init modes, both drawing from an explicit ``torch.Generator``:
 ``"normal002"`` (the GAN families: the reference's ``init_weights``, weights
 N(0, 0.02), zero biases — zero bias is the JAX package's documented deviation,
 kept) and ``"torch"`` (the diffusion UNet, which the reference never
-re-initialises: weight and bias both U(+-1/sqrt(fan_in))). The remaining
-layers of the JAX module (LayerNorm, max_pool_2x) arrive with the slices that
-use them.
+re-initialises: weight and bias both U(+-1/sqrt(fan_in)); a grouped
+convolution's fan-in is that of one group).
 """
 
 from __future__ import annotations
@@ -68,16 +71,38 @@ class LeakyReLU(nn.LeakyReLU):
         return leaky_relu(x, self.negative_slope)
 
 
-def silu(x: torch.Tensor) -> torch.Tensor:
-    """``x * sigmoid(x)``. In bfloat16 as XLA computes ``x *
-    jax.nn.sigmoid(x)`` (``pai_tpu/ops/layers.py:71-73``): the sigmoid
-    expanded to ``1 / (1 + exp(-x))``, rounded after the exp, the add, the
-    division and the product; outside autocast, which on CUDA would run the
-    exp and the division in float32."""
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """In bfloat16 as XLA computes ``jax.nn.sigmoid``: expanded to ``1 / (1 +
+    exp(-x))``, rounded after the exp, the add and the division; outside
+    autocast, which on CUDA would run the exp and the division in
+    float32."""
     if x.dtype == torch.bfloat16:
         with torch.autocast(x.device.type, enabled=False):
-            return x * torch.reciprocal(1 + torch.exp(-x))
+            return torch.reciprocal(1 + torch.exp(-x))
+    return torch.sigmoid(x)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * sigmoid(x)`` (``pai_tpu/ops/layers.py:71-73``); in bfloat16 the
+    product is rounded once more, outside autocast."""
+    if x.dtype == torch.bfloat16:
+        with torch.autocast(x.device.type, enabled=False):
+            return x * sigmoid(x)
     return nn.functional.silu(x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The exact GELU. In bfloat16 as XLA computes
+    ``jax.nn.gelu(approximate=False)``, ``0.5 * x * erfc(-x * sqrt(0.5))``
+    with ``sqrt(0.5)`` rounded to bfloat16: the erfc's argument is kept in
+    float32 (its only reader is float32), the erfc and the final product
+    are rounded; outside autocast."""
+    if x.dtype == torch.bfloat16:
+        with torch.autocast(x.device.type, enabled=False):
+            half = weak_scalar(math.sqrt(0.5), x.dtype)
+            erfc = torch.special.erfc(-x.float() * half)
+            return (0.5 * x) * erfc.to(torch.bfloat16)
+    return nn.functional.gelu(x)
 
 
 class SiLU(nn.SiLU):
@@ -167,15 +192,17 @@ class Conv(nn.Conv2d):
     """``float32_sum``: a BatchNorm or a float32 output reads the output, so
     under bfloat16 autocast it is the float32 sum of the rounded product and
     bias (``_bias_after_rounding``). ``bias=False``: no bias (the PatchGAN's
-    head)."""
+    head, TransUNet's encoder). ``groups``: a grouped convolution
+    (ResNeXt's 3x3, cardinality 32)."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
                  stride: int = 1, padding: int = 0,
                  init_mode: str = "normal002",
                  generator: Optional[torch.Generator] = None, device=None,
-                 float32_sum: bool = False, bias: bool = True):
+                 float32_sum: bool = False, bias: bool = True,
+                 groups: int = 1):
         super().__init__(in_channels, features, kernel_size, stride, padding,
-                         bias=bias, device=device)
+                         groups=groups, bias=bias, device=device)
         self.float32_sum = float32_sum
         _init(self, init_mode, generator)
 
@@ -185,15 +212,19 @@ class Conv(nn.Conv2d):
 
 
 class Dense(nn.Linear):
+    """``float32_sum`` as for ``Conv``."""
+
     def __init__(self, in_features: int, features: int,
                  init_mode: str = "normal002",
-                 generator: Optional[torch.Generator] = None, device=None):
+                 generator: Optional[torch.Generator] = None, device=None,
+                 float32_sum: bool = False):
         super().__init__(in_features, features, device=device)
+        self.float32_sum = float32_sum
         _init(self, init_mode, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return _bias_after_rounding(nn.functional.linear, x, self.weight,
-                                    self.bias, (-1,))
+                                    self.bias, (-1,), self.float32_sum)
 
 
 class ConvTranspose(nn.ConvTranspose2d):
@@ -323,6 +354,23 @@ class InstanceNorm(nn.Module):
         return f"eps={self.eps}"
 
 
+class LayerNorm(nn.LayerNorm):
+    """torch ``nn.LayerNorm`` over the last axis (eps 1e-5, scale and bias),
+    computed in float32 whatever the compute dtype and cast back to it
+    (``pai_tpu/ops/layers.py:252-263``): bfloat16 under bf16 autocast or
+    for a bfloat16 input, else the input's dtype."""
+
+    def __init__(self, features: int, device=None):
+        super().__init__(features, eps=1e-5, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bf16 = x.dtype == torch.bfloat16 or bf16_autocast(x)
+        with torch.autocast(device_type=x.device.type, enabled=False):
+            y = nn.functional.layer_norm(x.float(), self.normalized_shape,
+                                         self.weight, self.bias, self.eps)
+        return y.to(torch.bfloat16 if bf16 else x.dtype)
+
+
 class Dropout(nn.Module):
     """Elementwise dropout: each element kept with probability ``1 - rate``
     and scaled by ``1 / (1 - rate)``, the mask drawn from the module's
@@ -366,6 +414,14 @@ class Dropout2d(nn.Module):
 
     def extra_repr(self) -> str:
         return f"rate={self.rate}"
+
+
+def max_pool_2x(x: torch.Tensor) -> torch.Tensor:
+    """``nn.MaxPool2d(2)`` on NCHW (``pai_tpu/ops/layers.py:266-280``):
+    exact in any dtype. Its gradient goes to the first largest value of a
+    window in row-major order, as XLA's ``reduce_window`` max does, also
+    where the window holds ties (the zeros of a ReLU)."""
+    return nn.functional.max_pool2d(x, 2)
 
 
 def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:

@@ -17,9 +17,9 @@ epoch loop, validation cadence, metric logging, best/last checkpoints.
 * EMA updated after every step; validation and checkpoints' evaluation
   weights are the EMA's.
 
-Ported: Pix2Pix (the five losses, with the PatchGAN for ``gan``) and
-Palette. The other generator families are ROADMAP.md Queue A item 5, the
-multi-device options (``--tp``, ``--sp``, ``--fsdp``) item 7; both raise
+Every generator family trains: the seven GAN families (the five losses, with
+the PatchGAN for ``gan``) and Palette. The multi-device options (``--tp``,
+``--sp``, ``--fsdp``) are ROADMAP.md Queue A item 7 and raise
 ``NotImplementedError``. ``--scan-steps K`` is accepted and runs K ordinary
 steps (the JAX package folds them into one compiled ``lax.scan``; the result
 is the same). ``--profile-dir`` writes a ``torch.profiler`` trace of the first
@@ -54,7 +54,6 @@ from pai_tpu_torch.utils.logging import CSVLogger
 IMAGE_SIZE = 256
 LOG_EVERY = 10
 PROFILE_STEPS = 12
-TRAINED_MODELS = ("pix2pix", "palette")
 
 TrainState = Union[GanTrainState, PaletteTrainState]
 
@@ -112,16 +111,12 @@ def load_train_state(state: TrainState, flat: Mapping[str, torch.Tensor],
 
 
 class Trainer:
-    """One training run of Pix2Pix or Palette; ``hparams`` as the train CLI
+    """One training run of a generator family; ``hparams`` as the train CLI
     gives them (any missing key takes ``TRAIN_DEFAULTS``'s value), plus
     ``name``, ``data``, ``val_data`` and ``device``."""
 
     def __init__(self, hparams: Mapping, image_size: Optional[int] = None):
         h = dict(TRAIN_DEFAULTS, **hparams)
-        if h["model"] not in TRAINED_MODELS:
-            raise NotImplementedError(
-                f"training '{h['model']}' is not ported to pai_tpu_torch yet: "
-                "ROADMAP.md Queue A item 5 (other generator families)")
         if int(h.get("tp") or 1) != 1 or int(h.get("sp") or 1) != 1 \
                 or h.get("fsdp"):
             raise NotImplementedError(
@@ -131,9 +126,12 @@ class Trainer:
         if scan_k < 1 or LOG_EVERY % scan_k:
             raise ValueError("--scan-steps must divide the 10-step log "
                              "cadence (1, 2, 5 or 10)")
+        self.image_size = int(image_size or h.get("image_size") or IMAGE_SIZE)
+        # the slots' hparams rebuild the model at the size it trained at
+        # (TransUNet's positional embedding depends on it)
+        h["image_size"] = self.image_size
         self.hparams = h
         self.name = h["name"]
-        self.image_size = int(image_size or h.get("image_size") or IMAGE_SIZE)
         self.device = resolve_device(h.get("device") or "cuda")
         self.seed = int(h.get("seed") or 0)
         self.is_palette = h["model"] == "palette"

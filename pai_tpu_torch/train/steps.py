@@ -97,9 +97,11 @@ def step_seed(seed: int, step: int) -> int:
 
 def generator_dropout_active(generator: nn.Module) -> bool:
     """Whether any dropout layer of ``generator`` fires in a training
-    forward. A nonzero ``--dropout`` is not enough: Pix2Pix places dropout
-    only in the deepest widest decoders (``models/pix2pix.dropout_for_level``),
-    so mults (1, 2, 4, 8) never drop at any rate."""
+    forward (``pai_tpu/train/steps.py:113-137``). A nonzero ``--dropout`` is
+    not enough for the convolutional U-Nets: Pix2Pix, the attention and the
+    residual U-Nets drop only in the deepest widest decoders
+    (``models/pix2pix.dropout_for_level``), so mults (1, 2, 4, 8) never drop
+    at any rate. TransUNet's ViT drops at any nonzero rate."""
     return any(isinstance(m, (Dropout, Dropout2d)) and m.rate > 0.0
                for m in generator.modules())
 

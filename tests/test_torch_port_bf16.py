@@ -344,6 +344,142 @@ def test_a_convolution_read_by_batchnorm_hands_it_the_float32_sum():
     _assert_layer(got, want)
 
 
+# ------------------------------------- the layers of the other families
+def _family_layer(name, rng, tdtype, jdtype=BF16):
+    """(the port's output with ``tdtype`` inputs under bf16 autocast when
+    ``tdtype`` is bfloat16, the JAX package's at ``jdtype``) for one layer
+    the attention, residual and transformer U-Nets add."""
+    bf16 = tdtype == torch.bfloat16
+
+    def port(fn, *arrays, nchw=False):
+        args = [(_nchw(a, tdtype) if nchw else torch.from_numpy(a).to(tdtype))
+                for a in arrays]
+        with torch.no_grad(), torch.autocast("cpu", dtype=torch.bfloat16,
+                                             enabled=bf16):
+            out = fn(*args)
+        return _nhwc(out) if nchw else out
+
+    def jax_fn(fn, variables, *arrays):
+        return jax.jit(fn)(variables, *(jnp.asarray(a).astype(jdtype)
+                                        for a in arrays))
+
+    if name == "layer_norm":
+        x = _bf16_input(rng, (3, 5, 64), 2.0) + 0.5
+        scale = rng.uniform(0.5, 1.5, 64).astype(np.float32)
+        bias = rng.normal(0, 0.1, 64).astype(np.float32)
+        norm = tl.LayerNorm(64)
+        load_flax_block(norm, [("weight", ("LayerNorm_0", "scale"), "1d"),
+                               ("bias", ("LayerNorm_0", "bias"), "1d")],
+                        {"LayerNorm_0": {"scale": scale, "bias": bias}})
+        return port(norm, x), jax_fn(
+            lambda v, a: jl.LayerNorm(dtype=jdtype).apply(v, a),
+            {"params": {"LayerNorm_0": {"scale": scale, "bias": bias}}}, x)
+    if name == "gate":  # the attention gate's mask and product
+        x = _bf16_input(rng, (2, 8, 8, 16))
+        a = _bf16_input(rng, (2, 8, 8, 1), 2.0)
+        return port(lambda p, q: p * tl.sigmoid(q), x, a, nchw=True), \
+            jax_fn(lambda v, p, q: p * jax.nn.sigmoid(q), {}, x, a)
+    if name == "gelu":
+        x = _bf16_input(rng, (4, 256), 3.0)
+        return port(tl.gelu, x), jax_fn(
+            lambda v, a: jax.nn.gelu(a, approximate=False), {}, x)
+    if name == "vit_attention":  # pai_tpu/models/trans_unet.py:89-97
+        from pai_tpu_torch.models.trans_unet import attention
+
+        q, k, v = (_bf16_input(rng, (2, 8, 4, 32), 1.5) for _ in range(3))
+
+        def jattn(_, q, k, v):
+            logits = jnp.einsum("nhqd,nhkd->nhqk", q, k,
+                                preferred_element_type=jnp.float32)
+            w = jax.nn.softmax(logits / np.sqrt(q.shape[-1]), axis=-1)
+            return jnp.einsum("nhqk,nhkd->nhqd", w.astype(q.dtype), v,
+                              preferred_element_type=jnp.float32
+                              ).astype(q.dtype)
+
+        return port(lambda *a: attention(*a, tl.Dropout(0.0)), q, k, v), \
+            jax_fn(jattn, {}, q, k, v)
+    if name == "grouped_conv":  # ResNeXt's 3x3, here 8 groups of 4
+        x = _bf16_input(rng, (2, 8, 8, 32))
+        kernel = rng.normal(0, 0.1, (3, 3, 4, 16)).astype(np.float32)
+        bias = rng.normal(0, 0.3, (16,)).astype(np.float32)
+        conv = tl.Conv(32, 16, 3, padding=1, groups=8)
+        load_flax_block(conv, [
+            ("weight", ("kernel",), "conv"), ("bias", ("bias",), "1d")],
+            {"kernel": kernel, "bias": bias})
+        return port(conv.to(memory_format=torch.channels_last), x,
+                    nchw=True), jax_fn(
+            lambda v, a: jl.Conv(16, 3, padding=1, groups=8,
+                                 dtype=jdtype).apply(v, a),
+            {"params": {"kernel": kernel, "bias": bias}}, x)
+    x = _bf16_input(rng, (2, 8, 8, 16), 2.0)  # max_pool_2x
+    return port(tl.max_pool_2x, x, nchw=True), jax_fn(
+        lambda v, a: jl.max_pool_2x(a), {}, x)
+
+
+FAMILY_LAYERS = ["layer_norm", "gate", "gelu", "vit_attention",
+                 "grouped_conv", "max_pool_2x"]
+
+
+@pytest.mark.parametrize("name", FAMILY_LAYERS)
+def test_family_layers_round_as_jax_at_bf16(name):
+    """LayerNorm in float32, rounded once (pai_tpu/ops/layers.py:252-263);
+    the gate's sigmoid expanded and rounded op by op, then the product
+    (pai_tpu/models/attention_unet.py:33-34); the exact GELU with its erfc
+    argument kept in float32, the erfc and the product rounded; the ViT's
+    attention with float32 logits, softmax and weighted sum, its weights and
+    its result rounded; a grouped convolution through
+    ``_bias_after_rounding``; the max pool, exact. Each bit-equal to
+    pai_tpu's here, and within one unit by the layers' bound."""
+    got, want = _family_layer(name, np.random.default_rng(8), torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    _assert_layer(got, want)
+
+
+@pytest.mark.parametrize("name", FAMILY_LAYERS[:-1])
+def test_family_layers_float32_control_fails_at_bf16(name):
+    """The same layer in float32 on the same bfloat16-valued inputs, held
+    against pai_tpu's bfloat16 result, fails the bound: without the
+    rounding points the port would not pass. The max pool has none (a
+    maximum is exact in any dtype), so it has no such control."""
+    got, want = _family_layer(name, np.random.default_rng(8), torch.float32)
+    with pytest.raises(AssertionError):
+        _assert_layer(got, want)
+
+
+@pytest.mark.parametrize("name", FAMILY_LAYERS)
+def test_family_layers_at_float32_are_unchanged(name):
+    got, want = _family_layer(name, np.random.default_rng(8), torch.float32,
+                              jnp.float32)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4, atol=1e-5)
+
+
+def test_library_ops_differ_from_jax_at_bf16():
+    """The rounding points matter: the library's bfloat16 GELU and sigmoid,
+    and a grouped convolution with its bias inside, differ from pai_tpu's
+    in a good share of the outputs."""
+    rng = np.random.default_rng(8)
+    x = _bf16_input(rng, (4, 256), 3.0)
+    for lib, jfn in ((torch.nn.functional.gelu,
+                      lambda a: jax.nn.gelu(a, approximate=False)),
+                     (torch.sigmoid, jax.nn.sigmoid)):
+        want = jax.jit(jfn)(jnp.asarray(x).astype(BF16))
+        got = lib(torch.from_numpy(x).bfloat16())
+        assert float(np.mean(_np(got) != _np(want))) > 0.05
+    _, want = _family_layer("grouped_conv", np.random.default_rng(8),
+                            torch.bfloat16)
+    rng = np.random.default_rng(8)
+    x = _bf16_input(rng, (2, 8, 8, 32))
+    kernel = rng.normal(0, 0.1, (3, 3, 4, 16)).astype(np.float32)
+    bias = rng.normal(0, 0.3, (16,)).astype(np.float32)
+    with torch.no_grad(), torch.autocast("cpu", dtype=torch.bfloat16):
+        inside = torch.nn.functional.conv2d(
+            _nchw(x), torch.from_numpy(jax_params._to_torch(kernel, "conv")
+                                       .copy()),
+            torch.from_numpy(bias), padding=1, groups=8)
+    assert float(np.mean(_np(_nhwc(inside)) != _np(want))) > 0.05
+
+
 # -------------------------------------------------------------- blocks
 def _resblock(rng, in_ch, out_ch, down):
     x = _bf16_input(rng, (2, 8, 8, in_ch))

@@ -19,7 +19,8 @@ import pytest
 import torch
 
 from pai_tpu_torch import reporting as port_reporting
-from pai_tpu_torch.api import AttentionUnetGAN, Pix2Pix, TransUnetGAN
+from pai_tpu_torch.api import (AttentionUnetGAN, Pix2Pix, ResUnetGAN,
+                               TransUnetGAN)
 from pai_tpu_torch.data import BatchLoader, ImageDataset
 from pai_tpu_torch.interop import state_dict_from_jax
 from pai_tpu_torch.utils import images as ti
@@ -219,7 +220,9 @@ def test_report_cli_surface_and_errors(reports, tmp_path, capsys):
     with pytest.raises(ValueError, match="only supported by palette"):
         port_reporting.run_report("x", None, reports["manifest"], "identity",
                                   output_process=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # -m names the family the slot is rebuilt as: a Pix2Pix slot has no
+    # attention gates
+    with pytest.raises(RuntimeError, match="attention_blocks"):
         port_reporting.run_report("x", reports["slot"], reports["manifest"],
                                   "attention_unet", device="cpu",
                                   reports_dir=str(tmp_path))
@@ -240,6 +243,9 @@ def test_entry_points_default_to_the_card_and_raise_without_one(reports):
                              "identity"]),
         lambda: Pix2Pix.load_from_checkpoint(reports["slot"]),
         lambda: Pix2Pix(),
+        lambda: AttentionUnetGAN(),
+        lambda: ResUnetGAN(res_type="next"),
+        lambda: TransUnetGAN(channel_mults=(1, 2, 2, 4, 4)),
         lambda: rebuild_eval_model(sd, meta["hparams"]),
         lambda: BatchLoader(ImageDataset(reports["manifest"], SIZE), 2),
     ]
@@ -249,19 +255,25 @@ def test_entry_points_default_to_the_card_and_raise_without_one(reports):
 
 
 def test_unported_api_surface_names_the_roadmap():
-    for cls in (AttentionUnetGAN, TransUnetGAN):
-        with pytest.raises(NotImplementedError, match="Queue A item 5"):
-            cls(device="cpu").fit("run", "data.yaml")
-    for cls in (AttentionUnetGAN, TransUnetGAN):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cls(device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Every class of the JAX package's API is ported and takes its family
+    from its name (``ResUnetGAN`` from ``res_type``); what the port's API
+    still lacks is ``from_lightning_checkpoint`` (ROADMAP.md Queue A item
+    6). A class without weights refuses to predict, and one loads a slot of
+    its family by the slot's hyperparameters."""
+    names = {AttentionUnetGAN: "attention_unet", TransUnetGAN: "trans_unet",
+             ResUnetGAN: "res18_unet", Pix2Pix: "pix2pix"}
+    for cls, name in names.items():
+        model = cls(channel_mults=(1, 2), device="cpu")
+        assert model.hparams["model"] == name
+        assert model.hparams["channel_mults"] == "1,2"
+        with pytest.raises(ValueError, match="no weights"):
+            model.predict(np.zeros((1, 16, 16, 1), np.float32))
+        assert not hasattr(cls, "from_lightning_checkpoint")
+        with pytest.raises(FileNotFoundError):
             cls.load_from_checkpoint("nowhere", device="cpu")
-    model = Pix2Pix(channel_mults=(1, 2), device="cpu")
-    assert model.hparams["channel_mults"] == "1,2"
-    assert model.hparams["model"] == "pix2pix"
-    with pytest.raises(ValueError, match="no weights"):
-        model.predict(np.zeros((1, 16, 16, 1), np.float32))
+    for res_type in ("18", "50", "v2", "next"):
+        assert ResUnetGAN(res_type=res_type, device="cpu").hparams[
+            "model"] == f"res{res_type}_unet"
 
 
 def test_port_imports_no_jax_and_none_of_the_helpers_it_replaces():

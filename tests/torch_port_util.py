@@ -67,14 +67,47 @@ def numpy_tree_like(abstract, rng, kind):
     return out
 
 
-def pix2pix_numpy_variables(mults, size, seed):
-    """(flax module, params, batch_stats) for a Pix2PixUnet with numpy-made
-    weights; nothing is computed in JAX beyond shapes."""
-    import jax
-    import jax.numpy as jnp
+TRANS_VIT_LAYERS = 2  # the tests' ViT depth (the published one is 12)
+
+
+def jax_generator(name, mults, size=32, dropout=0.0):
+    """The JAX package's generator ``name`` at ``mults``; TransUNet for
+    ``size``-pixel images with ``TRANS_VIT_LAYERS`` ViT layers."""
+    if name == "trans_unet":
+        from pai_tpu.models.trans_unet import TransUnet
+
+        return TransUnet(out_channels=1, image_size=size,
+                         channel_mults=tuple(mults), patch_size=4,
+                         num_heads=8, dropout=dropout,
+                         vit_layers=TRANS_VIT_LAYERS)
     from pai_tpu.models import build_generator
 
-    module = build_generator("pix2pix", channel_mults=mults)
+    return build_generator(name, channel_mults=mults, dropout=dropout)
+
+
+def port_generator(name, mults, size=32, dropout=0.0, **kwargs):
+    """The port's counterpart of ``jax_generator``; ``kwargs`` go to the
+    constructor (``generator``, ``device``, ``dtype``)."""
+    if name == "trans_unet":
+        from pai_tpu_torch.models.trans_unet import TransUnet
+
+        return TransUnet(image_size=size, channel_mults=tuple(mults),
+                         dropout=dropout, vit_layers=TRANS_VIT_LAYERS,
+                         **kwargs)
+    from pai_tpu_torch.models import build_generator
+
+    return build_generator(name, channel_mults=mults, dropout=dropout,
+                           **kwargs)
+
+
+def generator_numpy_variables(name, mults, size, seed):
+    """(flax module, params, batch_stats) for the JAX package's generator
+    ``name`` (``jax_generator``) with numpy-made weights; nothing is
+    computed in JAX beyond shapes."""
+    import jax
+    import jax.numpy as jnp
+
+    module = jax_generator(name, mults, size)
     abstract = jax.eval_shape(
         lambda: module.init(jax.random.key(0),
                             jnp.zeros((1, size, size, 1)), train=False))
@@ -82,6 +115,10 @@ def pix2pix_numpy_variables(mults, size, seed):
     params = numpy_tree_like(abstract["params"], rng, "params")
     stats = numpy_tree_like(abstract["batch_stats"], rng, "stats")
     return module, params, stats
+
+
+def pix2pix_numpy_variables(mults, size, seed):
+    return generator_numpy_variables("pix2pix", mults, size, seed)
 
 
 def palette_numpy_variables(mults, attn_res, size, seed, learn_var=False,
@@ -237,16 +274,34 @@ def discriminator_numpy_params(seed, size=32):
                            "params")
 
 
-def port_gan_models(params, stats, dparams, mults, dropout=0.0):
-    """The port's Pix2Pix (in train mode) and PatchGAN carrying the JAX
-    package's numpy trees."""
-    from pai_tpu_torch.interop import state_dict_from_jax
-    from pai_tpu_torch.models import Discriminator, build_generator
+def reference_state_dict(weights, prefix):
+    """The reference's tensors named ``prefix...`` (``tools/
+    make_parity_fixture.deterministic_weights``) as a port ``state_dict``,
+    the prefix stripped; each BatchNorm gains the zero
+    ``num_batches_tracked`` that torch's modules own."""
+    sd = {k[len(prefix):]: torch.from_numpy(v) for k, v in weights.items()
+          if k.startswith(prefix)}
+    sd.update({k.replace("running_mean", "num_batches_tracked"):
+               torch.zeros((), dtype=torch.int64)
+               for k in list(sd) if k.endswith("running_mean")})
+    return sd
 
-    gen = build_generator("pix2pix", channel_mults=mults, dropout=dropout,
-                          generator=torch.Generator().manual_seed(0))
-    hp = {"channel_mults": ",".join(str(m) for m in mults)}
-    gen.load_state_dict(state_dict_from_jax("pix2pix", params, stats, hp),
+
+def mults_hparams(mults):
+    return {"channel_mults": ",".join(str(m) for m in mults)}
+
+
+def port_gan_models(params, stats, dparams, mults, dropout=0.0,
+                    family="pix2pix", size=32):
+    """The port's generator ``family`` (in train mode) and PatchGAN carrying
+    the JAX package's numpy trees."""
+    from pai_tpu_torch.interop import state_dict_from_jax
+    from pai_tpu_torch.models import Discriminator
+
+    gen = port_generator(family, mults, size, dropout,
+                         generator=torch.Generator().manual_seed(0))
+    gen.load_state_dict(state_dict_from_jax(family, params, stats,
+                                            mults_hparams(mults)),
                         strict=True)
     disc = Discriminator(generator=torch.Generator().manual_seed(0))
     disc.load_state_dict(state_dict_from_jax("discriminator", dparams, {},
@@ -269,3 +324,143 @@ def jax_gan_state(params, stats, dparams, loss_type):
         d_opt=gan_optimizer().init(d) if gan else None,
         ema=init_ema({"generator": params,
                       "discriminator": d if gan else {}}))
+
+
+# ------------------------------------------------- GAN steps, port vs JAX
+def rel(got, want):
+    """Largest difference over the largest magnitude of ``want``."""
+    got, want = (np.asarray(a.detach().numpy() if isinstance(a, torch.Tensor)
+                            else a, np.float64) for a in (got, want))
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def slot_from_jax(jstate, loss_type, hp, family="pix2pix"):
+    """The port's training slot (``train.loop.train_state_dict``'s names)
+    of a JAX train state: both networks, both Adam chains, the EMA."""
+    from pai_tpu_torch.interop import state_dict_from_jax
+
+    flat = dict(state_dict_from_jax(family, jstate.g_params,
+                                    jstate.g_stats, hp))
+    nets = [("", family, jstate.g_opt[0], jstate.ema.params["generator"])]
+    if loss_type == "gan":
+        flat.update({"discriminator." + k: v for k, v in state_dict_from_jax(
+            "discriminator", jstate.d_params, {}, {}).items()})
+        nets.append(("discriminator.", "discriminator", jstate.d_opt[0],
+                     jstate.ema.params["discriminator"]))
+    for prefix, name, adam, ema in nets:
+        count = torch.tensor(float(adam.count))
+        for key, tree in (("exp_avg", adam.mu), ("exp_avg_sq", adam.nu)):
+            for k, v in state_dict_from_jax(name, tree, {}, hp).items():
+                flat[f"opt.{prefix}{k}.{key}"] = v.clone()
+                flat[f"opt.{prefix}{k}.step"] = count.clone()
+        for k, v in state_dict_from_jax(name, ema, {}, hp).items():
+            flat[f"ema.{prefix}{k}"] = v.clone()
+    return flat
+
+
+def compare_step(tstate, jstate, loss_type, before, hp, family="pix2pix",
+                 moment_tol=1e-4):
+    """One step's result from a shared state (the tolerances are those of
+    ``tests/test_torch_port_gan_train.py``'s docstring); ``before`` is the
+    shared state as a slot. ``moment_tol`` bounds the generator's Adam first
+    moments (the second: twice that) relative to each tensor's largest."""
+    from pai_tpu_torch.train.loop import train_state_dict
+    from pai_tpu_torch.train.state import GAN_LR
+
+    after = slot_from_jax(jstate, loss_type, hp, family)
+    got = train_state_dict(tstate)
+    assert got.keys() == after.keys()
+    for prefix, module in (("", tstate.generator),
+                           ("discriminator.", tstate.discriminator)):
+        if module is None:
+            continue
+        mus = {n: after[f"opt.{prefix}{n}.exp_avg"]
+               for n, _ in module.named_parameters()}
+        top = max(float(v.abs().max()) for v in mus.values())
+        # float noise: the biases a BatchNorm reads, directly or through
+        # linear layers and max pools, have a gradient of zero
+        degenerate = {n for n, v in mus.items()
+                      if float(v.abs().max()) < 1e-3 * top}
+        for name, _ in module.named_parameters():
+            key, mu = prefix + name, mus[name]
+            assert float(got[f"opt.{key}.step"]) == float(jstate.step)
+            for what in (key, "ema." + key):
+                diff = (got[what] - after[what]).abs()
+                assert float(diff.max()) <= 2.0 * GAN_LR, what
+            if name in degenerate:
+                for side in (got[f"opt.{key}.exp_avg"], mu):
+                    assert float(side.abs().max()) <= 1e-3 * top, key
+                continue
+            tol = moment_tol if prefix == "" else 1e-4
+            assert rel(got[f"opt.{key}.exp_avg"], mu) <= tol, key
+            assert rel(got[f"opt.{key}.exp_avg_sq"],
+                       after[f"opt.{key}.exp_avg_sq"]) <= 2 * tol, key
+            moved = (after[key] - before[key]).abs().max()
+            assert float(moved) > 0.5 * GAN_LR, key  # not vacuous
+            # where Adam's first step cannot change sign within the bound
+            large = mu.abs() >= max(1e-3, tol) * mu.abs().max()
+            for what in (key, "ema." + key):
+                diff = (got[what] - after[what]).abs()
+                assert float(diff[large].max()) <= 1e-2 * GAN_LR, what
+    for name, buf in tstate.generator.named_buffers():
+        if name.endswith(("running_mean", "running_var")):
+            assert rel(buf, after[name]) <= 1e-4, name
+    assert tstate.ema.num_updates == int(jstate.ema.num_updates)
+
+
+def deepest_leaky_inputs(disc, margins):
+    """Record the smallest |input| of the PatchGAN's last LeakyReLU: its
+    block sums 16 positions per channel at 32x32, so an input within float
+    noise of 0, whose slope (1 or 0.2) the two frameworks may then take
+    differently, moves that block's gradients by several percent."""
+    def record(module, args):
+        margins.append(float(args[0].detach().abs().min()))
+
+    disc.discriminator[3].block[-1].register_forward_pre_hook(record)
+
+
+def run_gan_steps(params, stats, dparams, loss_type, batches, jstep, mults,
+                  dropout=0.0, before_step=None, family="pix2pix",
+                  moment_tol=1e-4):
+    """``len(batches)`` steps of both packages. Before each, the port's whole
+    train state is loaded from the JAX state (``train.loop.
+    load_train_state``), so each step is compared from a shared state."""
+    import jax
+    import jax.numpy as jnp
+    import pytest
+
+    from pai_tpu_torch.train import steps as tsteps
+    from pai_tpu_torch.train.loop import load_train_state
+
+    hp = mults_hparams(mults)
+    size = batches[0][0].shape[1]
+    gen, disc = port_gan_models(params, stats, dparams, mults, dropout,
+                                family, size)
+    tstate = tsteps.init_gan_state(gen, disc, loss_type, use_ema=True)
+    margins = []
+    if loss_type == "gan":
+        deepest_leaky_inputs(disc, margins)
+    tstep = tsteps.make_gan_train_step(gen, disc, loss_type)
+    jstate = jax_gan_state(params, stats, dparams, loss_type)
+    keys = {"loss", "train_ssim", "train_psnr", "train_rmse"} | (
+        {"d_loss"} if loss_type == "gan" else set())
+    for step, (x, y) in enumerate(batches):
+        before = slot_from_jax(jstate, loss_type, hp, family)
+        if step:  # step 0: the fresh state (Adam's moments not yet made)
+            load_train_state(tstate, before, {
+                "step": step, "ema_num_updates": step})
+        jstate, jm = jstep(jstate, jnp.asarray(x), jnp.asarray(y),
+                           jax.random.key(0))
+        if before_step is not None:
+            before_step()
+        tstate, tm = tstep(tstate, torch.from_numpy(x), torch.from_numpy(y))
+        assert set(tm) == set(jm) == keys
+        for key in keys:
+            assert float(tm[key]) == pytest.approx(float(jm[key]), rel=1e-5,
+                                                   abs=1e-6), (step, key)
+        assert tstate.step == int(jstate.step) == step + 1
+        compare_step(tstate, jstate, loss_type, before, hp, family,
+                     moment_tol)
+    assert all(m >= 1e-6 for m in margins), margins
+    return tstate
