@@ -8,17 +8,18 @@ Drives the port's main paths once each at full width — the Pix2Pix report
 Palette sampling (the CLI-default diffusion UNet: the same mults at inner
 width 128, attention at downsample rates 8,4,2, 100-step DDPM chain),
 Palette training (float32, and a bf16-mixed step), GAN training (Pix2Pix
-with the PatchGAN, the train CLI's default) and the other generator
-families' training and report (TransUNet through the CLIs) — through the
-entry points
-a user calls, and holds every hand-written kernel
-against its plain PyTorch version on the card. It imports ``pai_tpu_torch`` only (no JAX),
-builds the kernels from the sources in this checkout, needs no network and
-starts no process that outlives it (``nvcc`` and ``nvidia-smi`` are waited
-for). Phases, each printing one JSON line:
+with the PatchGAN, the train CLI's default), the other generator
+families' training and report (TransUNet through the CLIs) and a reference
+Lightning ``.ckpt`` imported, reported, resumed and exported — through the
+entry points a user calls, and holds every hand-written kernel against its
+plain PyTorch version on the card. It imports ``pai_tpu_torch`` only (no
+JAX), builds the kernels and the native PNG codec from the sources in this
+checkout, needs no network and starts no process that outlives it
+(``nvcc``, the C++ compiler and ``nvidia-smi`` are waited for). Phases, each
+printing one JSON line:
 
 1. ``device``  — card name and power limit, torch/CUDA versions, the precision
-   switches as set, seconds spent building the kernels.
+   switches as set, seconds spent building the kernels and the PNG codec.
    ``build`` — per flash kernel instantiation, ptxas's registers and spills
    (``-Xptxas -v``) and, where the toolkit has ``cuobjdump``, the count of
    HMMA (tensor-core) instructions in its SASS: every flash kernel (forward,
@@ -41,7 +42,7 @@ for). Phases, each printing one JSON line:
    of PyTorch's own fused attention call on the same tensors (timed here,
    used nowhere in the port).
 3. ``report``  — a 32-pair 256x256 synthetic dataset written with the port's
-   own PNG writer, a full-width Pix2Pix with random weights from a seeded
+   native PNG writer, a full-width Pix2Pix with random weights from a seeded
    generator and non-trivial BatchNorm statistics saved as a checkpoint, then
    ``pai_tpu_torch.report`` (``-bs 8 --device cuda``) and
    ``pai_tpu_torch.api.Pix2Pix.load_from_checkpoint(...).predict`` scored with
@@ -91,6 +92,23 @@ for). Phases, each printing one JSON line:
    steps, a validation, best and last slots, ``--resume`` to a second
    epoch, and the report CLI on the best slot, with ``ssim_scalar`` counted
    on the training path and ``ssim_map`` on the report.
+10. ``interop`` — the native PNG codec: its batch decoder against the plain
+   version over the report's 32 pairs (byte-equal) and over RGB, palette
+   and 16-bit files with every filter type at 256x256 (byte-equal) and
+   300x200 (resized: the exact share and the largest difference, at most
+   one level), and ms per 32 pairs, native on 8 threads against plain.
+   Then a reference-layout Lightning ``.ckpt`` of Pix2Pix at the published
+   widths with the PatchGAN and a torch_ema payload (shadow weights unlike
+   the raw ones) through ``python -m pai_tpu_torch.interop.lightning import
+   --slot best`` and the report CLI over 32 images at batch 8 (launch
+   counts set to 0 just before and read just after: 4 ``ssim_map``), its
+   outputs and per-image numbers bit-equal to the shadow weights loaded
+   directly, as are ``load_from_checkpoint`` and
+   ``from_lightning_checkpoint`` predictions (with cuDNN deterministic: its
+   default forward differs between two runs of one module, which is read); ``import --slot last`` and
+   ``pai_tpu_torch.main --resume`` for 10 steps from the checkpoint's
+   ``global_step`` with its EMA update count carried on; ``export`` of the
+   best slot bit-equal to the source's shadow and PatchGAN tensors.
 
 Then one line ``{"kernels": [...]}`` with, per kernel, its route, source, the
 TPU kernel it replaces, its launches in phase 3, its error against the plain
@@ -107,10 +125,12 @@ import os
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -849,19 +869,12 @@ def write_dataset(directory, n_images=N_IMAGES):
     return manifest
 
 
-def make_checkpoint(directory, device):
-    """Full-width Pix2Pix initialised on the card from a seeded generator,
-    BatchNorm statistics moved off their defaults, saved as an eval
-    checkpoint. Returns (slot path, parameter count)."""
-    from pai_tpu_torch.config import TRAIN_DEFAULTS
+def seeded_pix2pix(device, seed):
+    """Full-width Pix2Pix initialised on the card from a generator seeded
+    ``seed``, BatchNorm statistics moved off their defaults; eval mode."""
     from pai_tpu_torch.models import build_generator
-    from pai_tpu_torch.utils.checkpoint import save_eval_checkpoint
-    from pai_tpu_torch.utils.flops import parameter_count
 
-    gen = torch.Generator(device=device).manual_seed(0)
-    hparams = dict(TRAIN_DEFAULTS, model="pix2pix", channel_mults=FULL_MULTS,
-                   precision="32", image_size=SIZE, in_channels=1,
-                   out_channels=1)
+    gen = torch.Generator(device=device).manual_seed(seed)
     model = build_generator("pix2pix", channel_mults=(1, 2, 4, 8, 8, 8, 8, 8),
                             generator=gen, device=device)
     # Random N(0, 0.02) weights leave activations far from unit scale, so
@@ -879,7 +892,20 @@ def make_checkpoint(directory, device):
         model.train()(calib.uniform_(-1.0, 1.0, generator=gen))
         for module in norms:
             module.momentum = 0.1
-        model.eval()
+    return model.eval()
+
+
+def make_checkpoint(directory, device):
+    """``seeded_pix2pix`` saved as an eval checkpoint. Returns (slot path,
+    parameter count)."""
+    from pai_tpu_torch.config import TRAIN_DEFAULTS
+    from pai_tpu_torch.utils.checkpoint import save_eval_checkpoint
+    from pai_tpu_torch.utils.flops import parameter_count
+
+    hparams = dict(TRAIN_DEFAULTS, model="pix2pix", channel_mults=FULL_MULTS,
+                   precision="32", image_size=SIZE, in_channels=1,
+                   out_channels=1)
+    model = seeded_pix2pix(device, 0)
     slot = save_eval_checkpoint(os.path.join(directory, "checkpoints"),
                                 "smoke", model.state_dict(), hparams,
                                 slot="best", monitor_value=0.0)
@@ -934,7 +960,6 @@ def phase_report(device, workdir):
         p, t = denormalize(pred), denormalize(batch.y)
         scalar_ssim.append(metrics.ssim_per_image(p, t))
         batches.append((batch.x, p, t))
-    loader.close()
     torch.cuda.synchronize()
     launches = dict(kernels.launch_counts)
     # ---- end of the counted window -----------------------------------
@@ -1007,7 +1032,6 @@ def phase_report(device, workdir):
                                 pad_mode="zero", device="cuda")
     for _ in decode_loader:
         pass
-    decode_loader.close()
     torch.cuda.synchronize()
     decode_seconds = time.perf_counter() - start
     pred_host = batches[0][1].cpu().numpy()
@@ -1187,7 +1211,6 @@ def phase_palette(device, workdir):
     loader = BatchLoader(ImageDataset(manifest, SIZE), PALETTE_BATCH,
                          pad_mode="zero", device="cuda")
     batch = next(iter(loader))
-    loader.close()
     x1 = batch.x[:1]
     torch.cuda.synchronize()
     start = time.perf_counter()
@@ -1795,7 +1818,6 @@ def phase_train(device, workdir):
                          shuffle=True, pad_mode="cycle", seed=0,
                          device="cuda")
     batch = next(iter(loader))
-    loader.close()
     state = steps_lib.init_palette_state(trainer.model, use_ema=False)
     step = steps_lib.make_palette_train_step(
         trainer.model, trainer.sched_train, False,
@@ -2511,7 +2533,6 @@ def phase_gan(device, workdir):
     loader = BatchLoader(ImageDataset(train, SIZE), GAN_BATCH, shuffle=True,
                          pad_mode="cycle", device="cuda")
     batch = next(iter(loader))
-    loader.close()
     lean = real_make(state.generator, state.discriminator, "gan",
                      compute_metrics=False)
     lean(state, batch.x, batch.y)
@@ -2752,7 +2773,6 @@ def phase_families(device, workdir):
     loader = BatchLoader(ImageDataset(train, SIZE), GAN_BATCH, shuffle=True,
                          pad_mode="cycle", device="cuda")
     batch = next(iter(loader))
-    loader.close()
 
     families, card_cpu = {}, {}
     for family in FAMILY_PARAMETERS:
@@ -2870,9 +2890,359 @@ def phase_families(device, workdir):
     return train_launches, report_launches
 
 
+# the interop phase: a reference-layout Lightning .ckpt through the port
+INTEROP_STEP, INTEROP_EPOCH, INTEROP_EMA_UPDATES = 1000, 4, 500
+INTEROP_RESUME_STEPS = 10
+CODEC_THREADS = 8
+# the extra files of the decode check: PNG colour type, bit depth, samples
+# per pixel; each written at 256x256 (read at its own size) and at 300x200
+# (resized)
+CODEC_KINDS = {"rgb": (2, 8, 3), "palette": (3, 8, 1), "gray16": (0, 16, 1),
+               "rgba16": (6, 16, 4)}
+CODEC_SHAPES = ((SIZE, SIZE), (200, 300))
+# the report's wall time on the pure-Python decoder and writer before the
+# native codec (H100 80GB HBM3 at 700 W; PERF.md section 5), printed beside
+# this run's
+REPORT_SECONDS_BEFORE = (0.48, 0.57)
+
+
+def encode_png(path, samples, colour, depth, palette=None):
+    """Write ``samples`` ([H, W, C] uint8 or uint16; palette indices for
+    colour type 3) as a PNG whose row y is filtered with type y % 5 (None,
+    Sub, Up, Average, Paeth), zlib level 6."""
+    from pai_tpu_torch.utils.images import _chunk
+
+    h, w, c = samples.shape
+    raw = np.ascontiguousarray(samples.astype(
+        ">u2" if depth == 16 else np.uint8)).view(np.uint8).reshape(h, -1)
+    raw = raw.astype(np.int32)
+    bpp = c * depth // 8
+    rows, prev = [], np.zeros_like(raw[0])
+    for y, row in enumerate(raw):
+        a = np.concatenate([np.zeros(bpp, np.int32), row[:-bpp]])
+        up_left = np.concatenate([np.zeros(bpp, np.int32), prev[:-bpp]])
+        ftype = y % 5
+        pred = [np.zeros_like(row), a, prev, (a + prev) // 2, None][ftype]
+        if ftype == 4:
+            p = a + prev - up_left
+            pa, pb, pc = np.abs(p - a), np.abs(p - prev), np.abs(p - up_left)
+            pred = np.where((pa <= pb) & (pa <= pc), a,
+                            np.where(pb <= pc, prev, up_left))
+        rows.append(bytes([ftype]) + ((row - pred) % 256).astype(
+            np.uint8).tobytes())
+        prev = row
+    chunks = [(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, colour, 0, 0,
+                                    0))]
+    if palette is not None:
+        chunks.append((b"PLTE", palette.tobytes()))
+    chunks += [(b"IDAT", zlib.compress(b"".join(rows), 6)), (b"IEND", b"")]
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + b"".join(_chunk(kind, body) for kind, body in chunks))
+
+
+def write_codec_files(directory):
+    """The decode check's extra files (``CODEC_KINDS`` x ``CODEC_SHAPES``),
+    random content from a seed."""
+    rng = np.random.default_rng(11)
+    paths = []
+    for name, (colour, depth, channels) in CODEC_KINDS.items():
+        for h, w in CODEC_SHAPES:
+            top = 255 if depth == 8 else 65535
+            samples = rng.integers(0, top + 1, (h, w, channels)).astype(
+                np.uint8 if depth == 8 else np.uint16)
+            palette = None
+            if colour == 3:
+                samples = (samples % 64).astype(np.uint8)
+                palette = rng.integers(0, 256, (64, 3), dtype=np.uint8)
+            path = os.path.join(directory, f"{name}_{h}x{w}.png")
+            encode_png(path, samples, colour, depth, palette)
+            paths.append(path)
+    return paths
+
+
+def codec_check(workdir, manifest):
+    """The native batch decoder against the plain version over the report's
+    32 pairs and the extra files; ms per 32 pairs, native against plain."""
+    from pai_tpu_torch.data.manifest import load_manifest
+    from pai_tpu_torch.data.pipeline import decode_u8, decode_u8_plain
+    from pai_tpu_torch.utils.images import read_png_gray, read_png_gray_plain
+
+    pair_paths = [p for pair in load_manifest(manifest) for p in pair]
+    extras = write_codec_files(workdir)
+    decoded = decode_u8(pair_paths + extras, SIZE, CODEC_THREADS)
+    native_size, resized = 0, []
+    for path, got in zip(pair_paths + extras, decoded):
+        want = decode_u8_plain(path, SIZE)
+        if read_png_gray_plain(path).shape == (SIZE, SIZE):
+            check(np.array_equal(got, want),
+                  f"{path}: native decode differs from the plain version")
+            native_size += 1
+        else:
+            check(np.array_equal(read_png_gray(path),
+                                 read_png_gray_plain(path)),
+                  f"{path}: native gray read differs from the plain version")
+            resized.append(np.abs(got.astype(int) - want.astype(int)))
+    resized = np.stack(resized)
+    max_diff = int(resized.max())
+    check(max_diff <= 1, f"resized files: native vs plain differ by "
+          f"{max_diff} levels (limit 1)")
+
+    def median_ms(fn, repeats):
+        times = []
+        for _ in range(repeats):
+            start = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - start) * 1e3)
+        return statistics.median(times)
+
+    native_ms = median_ms(
+        lambda: decode_u8(pair_paths, SIZE, CODEC_THREADS), 7)
+    native_1_ms = median_ms(lambda: decode_u8(pair_paths, SIZE, 1), 5)
+    plain_ms = median_ms(
+        lambda: [decode_u8_plain(p, SIZE) for p in pair_paths], 3)
+    return {"files_at_native_size": native_size,
+            "files_resized": len(resized),
+            "resized_exact_share": float((resized == 0).mean()),
+            "resized_max_abs_diff_levels": max_diff,
+            "ms_per_32_pairs": {f"native_{CODEC_THREADS}_threads": native_ms,
+                                "native_1_thread": native_1_ms,
+                                "plain": plain_ms},
+            "plain_over_native": plain_ms / native_ms}
+
+
+def reference_checkpoint(path, device):
+    """A reference-layout Lightning ``.ckpt``: a full-width Pix2Pix
+    (``seeded_pix2pix``) and a seeded PatchGAN under ``unet.`` and
+    ``discriminator.`` in the modules' order, the reference's
+    ``hyper_parameters``, ``epoch`` and ``global_step``, and a torch_ema
+    payload whose shadow weights are the raw ones moved at random by 2 % of
+    themselves. Returns (state dict, shadow weights by name)."""
+    from pai_tpu_torch.interop.lightning import _is_buffer
+    from pai_tpu_torch.models import Discriminator
+
+    model = seeded_pix2pix(device, 5)
+    gen = torch.Generator(device=device).manual_seed(6)
+    disc = Discriminator(2, generator=gen, device=device)
+    sd = {"unet." + k: v.detach().cpu()
+          for k, v in model.state_dict().items()}
+    sd.update({"discriminator." + k: v.detach().cpu()
+               for k, v in disc.state_dict().items()})
+    noise = torch.Generator().manual_seed(7)
+    shadow = {k: v * (1 + 0.02 * torch.randn(v.shape, generator=noise))
+              for k, v in sd.items() if not _is_buffer(k)}
+    torch.save({
+        "state_dict": sd, "epoch": INTEROP_EPOCH,
+        "global_step": INTEROP_STEP,
+        "hyper_parameters": {"in_channels": 1, "out_channels": 1,
+                             "channel_mults": (1, 2, 4, 8, 8, 8, 8, 8),
+                             "dropout": 0.0, "loss_type": "gan"},
+        "callbacks": {"EMA": {"shadow_params": list(shadow.values()),
+                              "num_updates": INTEROP_EMA_UPDATES,
+                              "decay": 0.9999, "collected_params": None}},
+    }, path)
+    return sd, shadow
+
+
+def phase_interop(device, workdir):
+    """The native codec (build seconds; the batch decoder against the plain
+    version; ms per 32 pairs), then a reference-layout Lightning ``.ckpt``
+    of Pix2Pix at the published widths with the PatchGAN and an EMA payload
+    through ``python -m pai_tpu_torch.interop.lightning import --slot best``,
+    the report CLI over 32 images at batch 8 (launch counts set to 0 just
+    before and read just after; cuDNN set deterministic for it and for what
+    it is held against, bit for bit: the shadow weights loaded directly),
+    ``api.Pix2Pix.from_lightning_checkpoint``,
+    ``import --slot last`` and ``pai_tpu_torch.main --resume`` for 10 steps,
+    and ``export`` of the best slot."""
+    from pai_tpu_torch import kernels, native, report
+    from pai_tpu_torch import main as train_main
+    from pai_tpu_torch.api import Pix2Pix
+    from pai_tpu_torch.data import BatchLoader, ImageDataset
+    from pai_tpu_torch.interop import lightning
+    from pai_tpu_torch.models import build_generator
+    from pai_tpu_torch.reporting import chunk_metrics, unpack_chunk
+    from pai_tpu_torch.utils.checkpoint import load_checkpoint
+    from pai_tpu_torch.utils.images import (afmhot_rgb, denormalize, read_png,
+                                            to_int)
+
+    seconds = {}
+
+    def timed(name, fn, *args):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - start
+        return out
+
+    manifest = timed("write_dataset", write_dataset, workdir)
+    codec = timed("codec_check", codec_check, workdir, manifest)
+
+    ckpt = os.path.join(workdir, "reference.ckpt")
+    sd, shadow = timed("write_reference_ckpt", reference_checkpoint, ckpt,
+                       device)
+    n_gen = sum(v.numel() for k, v in shadow.items()
+                if k.startswith("unet."))
+    n_disc = sum(v.numel() for k, v in shadow.items()
+                 if k.startswith("discriminator."))
+    check(n_gen == PIX2PIX_PARAMETERS and n_disc == PATCHGAN_PARAMETERS,
+          f"parameters {n_gen} + {n_disc}, expected {PIX2PIX_PARAMETERS} + "
+          f"{PATCHGAN_PARAMETERS}")
+    ckdir, logdir = (os.path.join(workdir, d) for d in ("ick", "ilogs"))
+    best = timed("import_best", lightning.main, [
+        "import", ckpt, "-m", "pix2pix", "-o", ckdir, "--name", "interop",
+        "--slot", "best"])
+
+    # the shadow weights loaded directly into the module
+    direct = build_generator("pix2pix", channel_mults=(1, 2, 4, 8, 8, 8, 8, 8),
+                             device="meta")
+    direct.load_state_dict({k[len("unet."):]: shadow.get(k, v)
+                            for k, v in sd.items() if k.startswith("unet.")},
+                           strict=True, assign=True)
+    direct = direct.to(device).to(memory_format=torch.channels_last)
+    direct = direct.eval().requires_grad_(False)
+    loader = BatchLoader(ImageDataset(manifest, SIZE), BATCH, pad_mode="zero",
+                         device="cuda")
+    # cuDNN's default forward is not bit-reproducible at these shapes: the
+    # same module on the same batch twice differs (read here). The report
+    # and what it is held against run with deterministic algorithms.
+    with torch.inference_mode():
+        x0 = next(iter(loader)).x
+        rerun_diff = float((direct(x0) - direct(x0)).abs().max())
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # ---- the interop path, counted ----------------------------------
+        reports_dir = os.path.join(workdir, "ireports")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        start = time.perf_counter()
+        report.main(["interop", "-c", best, "-d", manifest, "-m", "pix2pix",
+                     "-bs", str(BATCH), "--device", "cuda", "--reports-dir",
+                     reports_dir])
+        torch.cuda.synchronize()
+        seconds["report"] = time.perf_counter() - start
+        launches = dict(kernels.launch_counts)
+        # ---- end of the counted window ----------------------------------
+        n_batches = N_IMAGES // BATCH
+        check(launches["ssim_map"] == SSIM_MAP_LAUNCHES_PER_BATCH * n_batches
+              and launches["ssim_scalar"] == 0,
+              f"the interop report launched {launches}, expected "
+              f"{n_batches} ssim_map")
+
+        # the report's outputs and numbers, and both API routes, against
+        # the shadow weights' own predictions
+        api_best = Pix2Pix.load_from_checkpoint(best, device="cuda")
+        api_ckpt = timed("from_lightning_checkpoint",
+                         Pix2Pix.from_lightning_checkpoint, ckpt, "cuda")
+        check(api_ckpt.hparams["ema"] is True, "the API did not find the EMA")
+        rdir = os.path.join(reports_dir, "interop")
+        columns = {name: read_csv_column(
+            os.path.join(rdir, f"{name}_per_image.csv"), f"image,{name}")
+            for name in ("ssim", "psnr", "mse")}
+        index = 0
+        with torch.inference_mode():
+            for batch in loader:
+                pred = direct(batch.x)
+                check(torch.equal(api_best.predict(batch.x), pred)
+                      and torch.equal(api_ckpt.predict(batch.x), pred),
+                      "an API prediction differs from the shadow weights' "
+                      "own")
+                host = unpack_chunk(chunk_metrics(
+                    denormalize(pred), denormalize(batch.y)).cpu().numpy(),
+                    pred.shape)
+                for k in range(batch.n_valid):
+                    stem = f"{str(index).zfill(5)}.png"
+                    check(np.array_equal(
+                        read_png(os.path.join(rdir, "outputs", stem)),
+                        to_int(afmhot_rgb(host["pred"][k, ..., 0]))),
+                        f"report output {stem} is not the shadow weights' "
+                        "prediction")
+                    for name in ("ssim", "psnr", "mse"):
+                        check(np.float32(columns[name][index])
+                              == host[name][k],
+                              f"report {name} of image {index} differs from "
+                              "the shadow weights'")
+                    index += 1
+        check(index == N_IMAGES, f"compared {index} images")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    del direct, api_best, api_ckpt
+    # the same report with cuDNN's default algorithms, timed only
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    report.main(["interop_default", "-c", best, "-d", manifest, "-m",
+                 "pix2pix", "-bs", str(BATCH), "--device", "cuda",
+                 "--reports-dir", reports_dir])
+    torch.cuda.synchronize()
+    seconds["report_default_cudnn"] = time.perf_counter() - start
+
+    # --resume from an imported last slot
+    timed("import_last", lightning.main, [
+        "import", ckpt, "-m", "pix2pix", "-o", ckdir, "--name", "interop",
+        "--slot", "last"])
+    target = INTEROP_STEP + INTEROP_RESUME_STEPS
+    summary = timed("resume", train_main.main, [
+        "interop", "-d", manifest, "-m", "pix2pix", "--loss-type", "gan",
+        "--ema", "--resume", "--batch-size", str(BATCH), "--epochs",
+        str(INTEROP_EPOCH + 4), "--steps", str(target), "--precision", "32",
+        "--device", "cuda", "--ckpt-dir", ckdir, "--log-dir", logdir])
+    _, meta = load_checkpoint(os.path.join(ckdir, "interop", "last"))
+    check(summary["steps"] == target and meta["step"] == target,
+          f"resumed to step {meta['step']}, expected {target}")
+    check(meta["ema_num_updates"]
+          == INTEROP_EMA_UPDATES + INTEROP_RESUME_STEPS,
+          f"EMA updates {meta['ema_num_updates']}, expected "
+          f"{INTEROP_EMA_UPDATES + INTEROP_RESUME_STEPS}")
+    logged = read_csv_steps(os.path.join(logdir, "interop", "version_0",
+                                         "metrics.csv"))
+    check(logged == [target], f"log rows at steps {logged}, expected "
+          f"[{target}]: the run did not start at the checkpoint's step")
+
+    # export of the best slot: the shadow weights and the PatchGAN
+    out = os.path.join(workdir, "exported.ckpt")
+    timed("export", lightning.main, ["export", best, "-o", out])
+    back = torch.load(out, map_location="cpu", weights_only=False)
+    check(back["state_dict"].keys() == sd.keys(),
+          "the export's tensor names are not the reference's")
+    for key, value in sd.items():
+        want = shadow.get(key, value) if key.startswith("unet.") else value
+        check(torch.equal(back["state_dict"][key], want),
+              f"exported {key} is not the source's shadow or PatchGAN value")
+
+    emit({"phase": "interop", "nvidia_smi": nvidia_smi_line(),
+          "codec_build_seconds": native.build_seconds,
+          "codec_library": os.path.basename(native.library_path()),
+          "decode": codec,
+          "parameters": {"generator": n_gen, "patchgan": n_disc},
+          "reference_ckpt_bytes": os.path.getsize(ckpt),
+          "images": N_IMAGES, "batch_size": BATCH,
+          "report_seconds_deterministic_cudnn": seconds["report"],
+          "report_seconds": seconds["report_default_cudnn"],
+          "report_images_per_second":
+              N_IMAGES / seconds["report_default_cudnn"],
+          "report_seconds_pure_python_codec": REPORT_SECONDS_BEFORE,
+          "launches": launches,
+          "default_cudnn_rerun_max_abs_diff": rerun_diff,
+          "resumed_to_step": meta["step"],
+          "ema_num_updates": meta["ema_num_updates"],
+          "exported_tensors_bit_equal": len(sd), "seconds": seconds})
+    return launches
+
+
+def read_csv_steps(path):
+    """The ``step`` column of a metrics CSV."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    column = lines[0].split(",").index("step")
+    return [int(float(line.split(",")[column])) for line in lines[1:]]
+
+
 def kernels_line(cases, report_batch, launches, flash_cases,
                  palette_launches, bwd_cases, train_launches, gan_launches,
-                 family_launches, family_report_launches):
+                 family_launches, family_report_launches,
+                 interop_launches):
     described = {
         "ssim_map": ("pai_tpu_torch/kernels/csrc/ssim.cu",
                      "pai_tpu/kernels/ssim_pallas.py:137"),
@@ -2905,6 +3275,7 @@ def kernels_line(cases, report_batch, launches, flash_cases,
             out[-1]["launches_palette_path"] = palette_launches[name]
             out[-1]["launches_trans_unet_report_path"] = \
                 family_report_launches[name]
+            out[-1]["launches_interop_report_path"] = interop_launches[name]
         else:  # validation batches and log rows of GAN training
             out[-1]["launches_gan_training_path"] = gan_launches[name]
             out[-1]["launches_trans_unet_training_path"] = \
@@ -2977,7 +3348,7 @@ def main():
               "needs one NVIDIA GPU", file=sys.stderr)
         return 1
 
-    from pai_tpu_torch import kernels
+    from pai_tpu_torch import kernels, native
     from pai_tpu_torch.config import apply_precision_policy
 
     device = torch.device("cuda", 0)
@@ -2986,12 +3357,14 @@ def main():
     seconds = {}
     start = time.perf_counter()
     kernels.load_library("ssim")  # builds every source, in parallel
+    native.load_library()  # the PNG codec, with the host's C++ compiler
     tmp = tempfile.gettempdir()
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "precision": "32", **flags,
           "kernel_build_seconds": kernels.build_seconds,
+          "codec_build_seconds": native.build_seconds,
           "tmpdir": tmp, "tmpdir_free_bytes": shutil.disk_usage(tmp).free})
     seconds["device"] = time.perf_counter() - start
 
@@ -3018,6 +3391,8 @@ def main():
     with tempfile.TemporaryDirectory(prefix="pai_smoke_families_") as workdir:
         family_launches, family_report_launches = timed(
             "families", phase_families, device, workdir)
+    with tempfile.TemporaryDirectory(prefix="pai_smoke_interop_") as workdir:
+        interop_launches = timed("interop", phase_interop, device, workdir)
     for name in ("ssim_map", "ssim_scalar"):
         check(launches[name] > 0,
               f"kernel {name} was not launched on the Pix2Pix path")
@@ -3031,11 +3406,14 @@ def main():
           "path")
     check(family_report_launches["ssim_map"] > 0,
           "kernel ssim_map was not launched on the TransUNet report path")
+    check(interop_launches["ssim_map"] > 0,
+          "kernel ssim_map was not launched on the interop report path")
 
     emit({"phase": "seconds", **seconds})
     emit(kernels_line(cases, report_batch, launches, flash_cases,
                       palette_launches, bwd_cases, train_launches,
-                      gan_launches, family_launches, family_report_launches))
+                      gan_launches, family_launches, family_report_launches,
+                      interop_launches))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

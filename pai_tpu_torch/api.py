@@ -13,8 +13,9 @@ package: ``Pix2Pix``, ``AttentionUnetGAN``, ``ResUnetGAN`` (``res_type`` "18",
 ``Palette``, each with ``fit`` (train with ``train.loop.Trainer`` and adopt
 the run's ``last`` weights), ``load_from_checkpoint`` (an evaluation slot or
 a training slot; the family is the slot's) and ``predict``/``__call__``
-(Palette's runs the 100-step DDPM chain). ``from_lightning_checkpoint`` is
-not ported (ROADMAP.md Queue A item 6).
+(Palette's runs the 100-step DDPM chain), and ``from_lightning_checkpoint``
+(a reference Lightning ``.ckpt``, mapped by ``interop.lightning``; the
+model evaluates with the file's EMA weights where it holds an average).
 """
 
 from __future__ import annotations
@@ -96,6 +97,32 @@ class _Experiment:
         obj.hparams = h
         obj.device = resolve_device(device)
         obj._module, _ = rebuild_eval_model(state_dict, h, obj.device)
+        return obj
+
+    @classmethod
+    def from_lightning_checkpoint(cls, path: str,
+                                  device: Union[str, torch.device] = "cuda",
+                                  **hparams_override):
+        """Rebuild the model from a reference Lightning ``.ckpt`` (weights,
+        BatchNorm statistics and the torch_ema average, mapped as
+        ``python -m pai_tpu_torch.interop.lightning import`` maps them; the
+        file's pickle runs). ``hparams_override`` overrides what the file's
+        ``hyper_parameters`` say, ``model=`` the family (e.g.
+        ``ResUnetGAN.from_lightning_checkpoint(p, model="res50_unet")``)."""
+        from pai_tpu_torch.interop.lightning import (
+            import_lightning_checkpoint, slot_state_dict)
+        from pai_tpu_torch.restore import rebuild_eval_model
+
+        device = resolve_device(device)
+        model_name = hparams_override.pop("model", None) or cls.model_name
+        trees, h, _ = import_lightning_checkpoint(
+            str(path), model_name, hparams_override=hparams_override)
+        obj = cls.__new__(cls)
+        obj.model_name = model_name
+        obj.hparams = dict(TRAIN_DEFAULTS, **h)
+        obj.device = device
+        obj._module, _ = rebuild_eval_model(slot_state_dict(*trees),
+                                            obj.hparams, obj.device)
         return obj
 
     # -- inference ------------------------------------------------------

@@ -6,31 +6,37 @@ Per item: PNG decoded as grayscale, antialiased (triangle-filter) resize to
 normalising, like torchvision's uint8 ``Resize`` — then float32 in [0,1] and
 ``(x - 0.5) / 0.5``.
 
-Batches are assembled as **uint8** on the host (decode runs in a thread pool;
-``zlib`` releases the interpreter lock), handed to the device through pinned
-memory (one byte per pixel on the bus, not four) and converted and normalised
-**on the device**. The trailing partial batch is padded to the fixed batch
-shape: cycled samples for training (``pad_mode="cycle"``), zero padding with a
-validity count for evaluation (``"zero"``), so per-image metrics and outputs
-are exact. The order of an epoch is seeded per epoch, the same permutation the
-JAX loader draws (``epoch_batches``; the trainer sets ``epoch`` before each
-pass, so a resumed run sees the same orders). The JAX package's threaded C++
-decoder is ROADMAP.md Queue A item 6.
+Batches are assembled as **uint8** on the host by one call of the native C++
+batch decoder per batch (``native/png_native.decode_batch_u8`` over the
+batch's 2·B paths on ``num_workers`` threads, the interpreter lock released),
+in a producer thread that runs ahead of the consumer; a file the codec
+refuses is handed to the consumer as a ``ValueError``. Batches go to the
+device through pinned memory (one byte per pixel on the bus, not four) and
+are converted and normalised **on the device**. The trailing partial batch is
+padded to the fixed batch shape: cycled samples for training
+(``pad_mode="cycle"``), zero padding with a validity count for evaluation
+(``"zero"``), so per-image metrics and outputs are exact. The order of an
+epoch is seeded per epoch, the same permutation the JAX loader draws
+(``epoch_batches``; the trainer sets ``epoch`` before each pass, so a resumed
+run sees the same orders).
+
+``resize_antialias`` and ``decode_u8_plain`` are the plain version of one
+decoded item, for the tests and the GPU smoke test.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Iterator, List, NamedTuple, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from pai_tpu_torch.config import resolve_device
 from pai_tpu_torch.data.manifest import load_manifest
-from pai_tpu_torch.utils.images import read_png_gray
+from pai_tpu_torch.native import png_native
+from pai_tpu_torch.utils.images import read_png_gray_plain
 
 
 class Batch(NamedTuple):
@@ -60,23 +66,41 @@ def _triangle_weights(in_size: int, out_size: int) -> np.ndarray:
 
 def resize_antialias(img: np.ndarray, size: int) -> np.ndarray:
     """Antialiased resize of a uint8 [H,W] image to (size, size), float32 in
-    [0, 255] (columns first, then rows). The caller rounds."""
+    [0, 255] (columns first, then rows), the plain version of the codec's
+    ``resize_aa_f32`` (sums in another order: within one grey level once
+    rounded). The caller rounds."""
     h, w = img.shape
     tmp = img.astype(np.float32) @ _triangle_weights(w, size).T
     return _triangle_weights(h, size) @ tmp
 
 
+def decode_u8_plain(path: str, image_size: int) -> np.ndarray:
+    """The plain version of one item of ``decode_batch_u8``: [H,W,1] uint8,
+    resized and rounded when the file is another size."""
+    img = read_png_gray_plain(path)
+    if img.shape != (image_size, image_size):
+        resized = resize_antialias(img, image_size)
+        img = np.clip(resized + 0.5, 0, 255).astype(np.uint8)
+    return img[..., None]
+
+
+def decode_u8(paths: Sequence[str], image_size: int, num_threads: int = 8
+              ) -> np.ndarray:
+    """Decode ``paths`` -> [N, size, size, 1] uint8 with the native batch
+    decoder; raises ``ValueError`` for the first file it refuses."""
+    out, failed = png_native.decode_batch_u8(list(paths), image_size,
+                                             num_threads)
+    for path, code in zip(paths, failed):
+        if code:
+            raise png_native.decode_error(path, int(code))
+    return out
+
+
 def load_example_u8(paths: Tuple[str, str], image_size: int = 256
                     ) -> Tuple[np.ndarray, np.ndarray]:
     """Decode one pair -> two [H,W,1] uint8 arrays."""
-    out = []
-    for p in paths:
-        img = read_png_gray(p)
-        if img.shape[0] != image_size or img.shape[1] != image_size:
-            resized = resize_antialias(img, image_size)
-            img = np.clip(resized + 0.5, 0, 255).astype(np.uint8)
-        out.append(img[..., None])
-    return out[0], out[1]
+    x, y = decode_u8(paths, image_size, num_threads=2)
+    return x, y
 
 
 def normalize_u8(u8: torch.Tensor, normalize: bool = True) -> torch.Tensor:
@@ -131,16 +155,10 @@ class BatchLoader:
         self.prefetch = prefetch
         self.device = resolve_device(device)
         self.epoch = 0
-        self._pool: Optional[ThreadPoolExecutor] = None
 
     def __len__(self) -> int:
         n = len(self.dataset)
         return (n + self.batch_size - 1) // self.batch_size
-
-    def close(self) -> None:
-        if self._pool is not None:
-            self._pool.shutdown(wait=True)
-            self._pool = None
 
     def _epoch_order(self) -> np.ndarray:
         order = np.arange(len(self.dataset))
@@ -175,18 +193,15 @@ class BatchLoader:
                          pin_memory=pin)
         ys = torch.zeros((len(idx), size, size, 1), dtype=torch.uint8,
                          pin_memory=pin)
-        futures = {i: self._pool.submit(load_example_u8,
-                                        self.dataset.pairs[j], size)
-                   for i, j in enumerate(idx) if j >= 0}
-        xs_np, ys_np = xs.numpy(), ys.numpy()
-        for i, fut in futures.items():
-            xs_np[i], ys_np[i] = fut.result()
+        rows = [i for i, j in enumerate(idx) if j >= 0]
+        paths = [p for i in rows for p in self.dataset.pairs[idx[i]]]
+        decoded = decode_u8(paths, size, self.num_workers)
+        xs.numpy()[rows] = decoded[0::2]
+        ys.numpy()[rows] = decoded[1::2]
         return xs, ys
 
     def __iter__(self) -> Iterator[Batch]:
         batches = self.epoch_batches()
-        if self._pool is None:  # one pool per loader, reused across epochs
-            self._pool = ThreadPoolExecutor(max_workers=self.num_workers)
         out_q: "queue.Queue" = queue.Queue(self.prefetch)
         stop = threading.Event()
 

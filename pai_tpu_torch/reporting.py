@@ -7,7 +7,8 @@ Given a checkpoint and a data manifest, produces under
   RMSE, FLOPs, parameter count;
 * ``depth_ssim.csv`` — mean/std SSIM over 16 depth bands (std with ddof=1);
 * ``outputs/*.png`` — predictions colormapped with afmhot;
-* ``ssim_images/*.png`` — full-resolution SSIM maps;
+* ``ssim_images/*.png`` — full-resolution SSIM maps (the PNGs are written
+  by the native codec at zlib level 0, as the reference writes them);
 * ``ssim_per_image.csv`` / ``psnr_per_image.csv`` / ``mse_per_image.csv``.
 
 The model is rebuilt purely from the hyperparameters embedded in the
@@ -143,42 +144,39 @@ def run_report(name: str, checkpoint: Optional[str], data: str,
     # used: host memory stays O(batch), not O(dataset).
     ssims, psnrs, mses, bands = [], [], [], []
     index = 0
-    try:
-        with torch.inference_mode():
-            for batch in loader:
-                pred = predict(batch.x)
-                process = None
-                if output_process:
-                    pred, process = pred
-                p = denormalize(pred)
-                t = denormalize(batch.y)
-                host = unpack_chunk(chunk_metrics(p, t).cpu().numpy(),
-                                    p.shape)
-                nv = batch.n_valid
-                first = index
-                if process is not None:  # (n, F, H, W, C)
-                    process = denormalize(process)[:nv].cpu().numpy()
-                ssims.append(host["ssim"][:nv])
-                psnrs.append(host["psnr"][:nv])
-                mses.append(host["mse"][:nv])
-                bands.append(host["bands"][:nv])
-                for img, m in zip(host["pred"][:nv], host["map"][:nv]):
-                    stem = f"{str(index).zfill(5)}.png"
-                    write_png(to_int(afmhot_rgb(img[..., 0])),
-                              os.path.join(outputs_dir, stem))
-                    write_png(to_int(np.clip(m, 0.0, 1.0)),
-                              os.path.join(maps_dir, stem))
-                    if process is not None:
-                        frames = process[index - first]
-                        for k, frame in enumerate(frames):
-                            write_png(
-                                to_int(afmhot_rgb(frame[..., 0])),
-                                os.path.join(
-                                    process_dir,
-                                    f"{str(index).zfill(5)}_{k}.png"))
-                    index += 1
-    finally:
-        loader.close()
+    with torch.inference_mode():
+        for batch in loader:
+            pred = predict(batch.x)
+            process = None
+            if output_process:
+                pred, process = pred
+            p = denormalize(pred)
+            t = denormalize(batch.y)
+            host = unpack_chunk(chunk_metrics(p, t).cpu().numpy(),
+                                p.shape)
+            nv = batch.n_valid
+            first = index
+            if process is not None:  # (n, F, H, W, C)
+                process = denormalize(process)[:nv].cpu().numpy()
+            ssims.append(host["ssim"][:nv])
+            psnrs.append(host["psnr"][:nv])
+            mses.append(host["mse"][:nv])
+            bands.append(host["bands"][:nv])
+            for img, m in zip(host["pred"][:nv], host["map"][:nv]):
+                stem = f"{str(index).zfill(5)}.png"
+                write_png(to_int(afmhot_rgb(img[..., 0])),
+                          os.path.join(outputs_dir, stem))
+                write_png(to_int(np.clip(m, 0.0, 1.0)),
+                          os.path.join(maps_dir, stem))
+                if process is not None:
+                    frames = process[index - first]
+                    for k, frame in enumerate(frames):
+                        write_png(
+                            to_int(afmhot_rgb(frame[..., 0])),
+                            os.path.join(
+                                process_dir,
+                                f"{str(index).zfill(5)}_{k}.png"))
+                index += 1
     ssims = np.concatenate(ssims)
     psnrs = np.concatenate(psnrs)
     mses = np.concatenate(mses)

@@ -321,9 +321,6 @@ class Trainer:
                 if done:
                     break
         finally:
-            loader.close()
-            if self.val_loader is not None:
-                self.val_loader.close()
             if profiler is not None:
                 self._stop_profiler(profiler)
 

@@ -119,11 +119,18 @@ class CheckpointManager:
         with open(path) as f:
             return json.load(f)
 
+    def save(self, which: str, flat: Mapping[str, torch.Tensor],
+             hparams: Mapping, step: int, epoch: int,
+             monitor_value: Optional[float] = None, **extra) -> str:
+        """Write slot ``which`` whatever it holds; returns its path."""
+        return _write_slot(self.slot(which), flat, _meta(
+            hparams, step, epoch, monitor_value, **extra))
+
     def save_last(self, flat: Mapping[str, torch.Tensor], hparams: Mapping,
                   step: int, epoch: int,
                   monitor_value: Optional[float] = None, **extra) -> str:
-        return _write_slot(self.slot("last"), flat, _meta(
-            hparams, step, epoch, monitor_value, **extra))
+        return self.save("last", flat, hparams, step, epoch, monitor_value,
+                         **extra)
 
     def save_diverged(self, flat: Mapping[str, torch.Tensor],
                       hparams: Mapping, step: int, epoch: int,
@@ -131,16 +138,15 @@ class CheckpointManager:
         """Postmortem slot of a state whose loss went non-finite; kept apart
         from ``last`` (its weights are typically NaN), which ``--resume``
         recovers from."""
-        return _write_slot(self.slot("diverged"), flat, _meta(
-            hparams, step, epoch, None, **extra))
+        return self.save("diverged", flat, hparams, step, epoch, **extra)
 
     def maybe_save_best(self, flat: Mapping[str, torch.Tensor],
                         hparams: Mapping, step: int, epoch: int,
                         monitor_value: float, **extra) -> bool:
         """Save to ``best`` iff ``monitor_value`` (val_ssim) improved."""
         if self.best_value is None or monitor_value > self.best_value:
-            _write_slot(self.slot("best"), flat, _meta(
-                hparams, step, epoch, monitor_value, **extra))
+            self.save("best", flat, hparams, step, epoch, monitor_value,
+                      **extra)
             self.best_value = float(monitor_value)
             return True
         return False

@@ -7,11 +7,15 @@ port must run where neither is installed, so it carries its own:
 * ``afmhot_lut`` computes matplotlib's ``afmhot`` from its piecewise-linear
   definition (r: 0->1 over [0, .5]; g: 0->1 over [.25, .75]; b: 0->1 over
   [.5, 1]) at the 256 LUT positions;
-* ``write_png`` / ``read_png`` / ``read_png_gray`` are a PNG codec for 8-bit
-  non-interlaced gray / gray+alpha / RGB / RGBA images on ``zlib`` + numpy,
-  with all five filter types on the read side. Filter types 3 and 4 (Average,
-  Paeth) are undone pixel by pixel in Python, which is slow for large foreign
-  files; what this package writes uses filter 0 and decodes at memory speed.
+* ``read_png_gray`` / ``write_png`` go through the native C++ codec
+  (``pai_tpu_torch/native``), as the JAX package's do where it is built;
+* ``read_png`` / ``read_png_gray_plain`` / ``write_png_plain`` are the plain
+  version of that codec on ``zlib`` + numpy, for the tests and the GPU smoke
+  test to hold it against: the same PNG subset (8- and 16-bit non-interlaced
+  gray, gray+alpha, RGB, RGBA and 8-bit palette images; all five filter
+  types; the high byte of a 16-bit sample), the same float luma, the same
+  file written. Filter types 3 and 4 (Average, Paeth) are undone pixel by
+  pixel in Python, which is slow for large files.
 """
 
 from __future__ import annotations
@@ -23,9 +27,13 @@ from typing import Union
 import numpy as np
 import torch
 
+from pai_tpu_torch.native import png_native
+
 _UINT8_SCALE = 255.0 + 1.0 - 1e-3  # torchvision convert_image_dtype epsilon
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # PNG colour type -> samples per pixel
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples/pixel
+# ITU-R 601-2 luma as the codec's to_gray computes it, in float32
+_LUMA = tuple(np.float32(c) for c in (0.299, 0.587, 0.114))
 
 
 def denormalize(x: torch.Tensor) -> torch.Tensor:
@@ -73,21 +81,32 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
-def write_png(array: np.ndarray, path: str, compress_level: int = 0) -> None:
-    """Write a [H,W], [H,W,1] or [H,W,3] uint8 array as an 8-bit gray / RGB
-    PNG, filter 0 on every row. The reference writes with compression level
-    0, the default here."""
+def _png_array(array: np.ndarray) -> np.ndarray:
+    """``array`` as a [H,W] or [H,W,3] uint8 array; raises on anything
+    else."""
     arr = np.asarray(array)
     if arr.dtype != np.uint8:
         raise TypeError(f"write_png expects uint8, got {arr.dtype}")
     if arr.ndim == 3 and arr.shape[-1] == 1:
         arr = arr[..., 0]
-    if arr.ndim == 2:
-        colour_type = 0
-    elif arr.ndim == 3 and arr.shape[-1] == 3:
-        colour_type = 2
-    else:
+    if not (arr.ndim == 2 or (arr.ndim == 3 and arr.shape[-1] == 3)):
         raise ValueError(f"write_png expects [H,W] or [H,W,3], got {arr.shape}")
+    return arr
+
+
+def write_png(array: np.ndarray, path: str, compress_level: int = 0) -> None:
+    """Write a [H,W], [H,W,1] or [H,W,3] uint8 array as an 8-bit gray / RGB
+    PNG through the native codec, filter 0 on every row. The reference writes
+    with compression level 0, the default here."""
+    png_native.write_png(_png_array(array), path, compress_level)
+
+
+def write_png_plain(array: np.ndarray, path: str,
+                    compress_level: int = 0) -> None:
+    """The plain version of ``write_png``: the same file, written with
+    Python's ``zlib``."""
+    arr = _png_array(array)
+    colour_type = 0 if arr.ndim == 2 else 2
     h, w = arr.shape[:2]
     rows = np.zeros((h, 1 + arr[0].size), np.uint8)  # leading filter byte 0
     rows[:, 1:] = arr.reshape(h, -1)
@@ -138,22 +157,25 @@ def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
 
 
 def read_png(path: str) -> np.ndarray:
-    """Decode an 8-bit non-interlaced PNG -> uint8 [H,W] (gray) or [H,W,C]
-    (C = 2 gray+alpha, 3 RGB, 4 RGBA). Raises on what it does not read
-    (palette, 16-bit, sub-byte depths, Adam7)."""
+    """Decode a PNG in the plain version -> uint8 [H,W] (gray) or [H,W,C] (C
+    = 2 gray+alpha, 3 RGB or palette, 4 RGBA); a 16-bit sample keeps its
+    high byte. Raises ``ValueError`` on what the native codec refuses too
+    (sub-byte depths, 16-bit palette, Adam7)."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
     pos = 8
     header = None
-    idat = []
+    idat, palette = [], None
     while pos + 8 <= len(data):
         length, kind = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8:pos + 8 + length]
         pos += 12 + length
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8)
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
@@ -161,31 +183,46 @@ def read_png(path: str) -> np.ndarray:
     if header is None:
         raise ValueError(f"{path}: PNG without IHDR")
     w, h, depth, colour_type, _, _, interlace = header
-    if depth != 8 or colour_type not in _CHANNELS or interlace != 0:
+    if depth not in (8, 16) or colour_type not in _CHANNELS \
+            or interlace != 0 or (colour_type == 3 and depth != 8):
         raise ValueError(
-            f"{path}: only 8-bit non-interlaced gray/RGB(+alpha) PNGs are "
-            f"read (bit depth {depth}, colour type {colour_type}, "
-            f"interlace {interlace})")
+            f"{path}: only 8- and 16-bit non-interlaced gray, RGB, palette "
+            f"(8-bit) and gray/RGB+alpha PNGs are read (bit depth {depth}, "
+            f"colour type {colour_type}, interlace {interlace})")
     channels = _CHANNELS[colour_type]
-    stride = w * channels
+    bpp = channels * depth // 8
+    stride = w * bpp
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size != h * (stride + 1):
         raise ValueError(f"{path}: PNG data has the wrong length")
-    pixels = _unfilter(raw.reshape(h, stride + 1), h, stride, channels)
+    pixels = _unfilter(raw.reshape(h, stride + 1), h, stride, bpp)
+    if depth == 16:
+        pixels = pixels[:, 0::2]  # the high byte of each sample
+    if colour_type == 3:
+        if palette is None or int(pixels.max(initial=0)) * 3 + 2 \
+                >= palette.size:
+            raise ValueError(f"{path}: palette index outside PLTE")
+        return palette.reshape(-1, 3)[pixels.reshape(h, w)]
     return pixels.reshape(h, w) if channels == 1 \
         else pixels.reshape(h, w, channels)
 
 
 def read_png_gray(path: str) -> np.ndarray:
-    """Read a PNG as single-channel uint8 [H,W]: alpha is dropped and RGB goes
-    through the ITU-R 601-2 luma transform in PIL's fixed-point form,
-    ``(19595 R + 38470 G + 7471 B + 0x8000) >> 16``."""
+    """Read a PNG through the native codec as single-channel uint8 [H,W]:
+    alpha is dropped; RGB and palette colours go through the ITU-R 601-2
+    luma transform with float coefficients, ``uint8(0.299 R + 0.587 G +
+    0.114 B + 0.5)`` in float32 (torchvision's ``ImageReadMode.GRAY``; PIL's
+    fixed-point form can differ by one grey level)."""
+    return png_native.read_png_gray(path)
+
+
+def read_png_gray_plain(path: str) -> np.ndarray:
+    """The plain version of ``read_png_gray``, byte for byte."""
     img = read_png(path)
     if img.ndim == 2:
         return img
     if img.shape[-1] == 2:
         return np.ascontiguousarray(img[..., 0])
-    rgb = img[..., :3].astype(np.uint32)
-    luma = (19595 * rgb[..., 0] + 38470 * rgb[..., 1] + 7471 * rgb[..., 2]
-            + 0x8000) >> 16
+    r, g, b = (img[..., k].astype(np.float32) for k in range(3))
+    luma = _LUMA[0] * r + _LUMA[1] * g + _LUMA[2] * b + np.float32(0.5)
     return luma.astype(np.uint8)

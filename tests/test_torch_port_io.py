@@ -119,16 +119,19 @@ def test_png_reader_matches_pil_on_filtered_compressed_files(tmp_path, mode,
     with Image.open(path) as im:
         want = np.asarray(im.convert("L"))
     assert gray.shape == (40, 52) and gray.dtype == np.uint8
-    if mode != "RGBA" and mode != "LA":
+    # the port reads through its copy of the JAX package's C++ codec (float
+    # luma coefficients): byte-equal to that codec, to the JAX package's
+    # reader and to the plain version; PIL's fixed-point luma agrees on gray
+    # files and within one grey level on RGB
+    from pai_tpu.native import png_native as jax_png_native
+
+    np.testing.assert_array_equal(gray, jax_png_native.read_png_gray(path))
+    np.testing.assert_array_equal(gray, jax_read_png_gray(path))
+    np.testing.assert_array_equal(gray, ti.read_png_gray_plain(path))
+    if mode == "L":
         np.testing.assert_array_equal(gray, want)
-    # the JAX package reads through its C++ codec where that is built (float
-    # luma coefficients) and through PIL otherwise (fixed-point): gray files
-    # agree exactly, RGB within one grey level
-    theirs = jax_read_png_gray(path)
-    if channels <= 2:
-        np.testing.assert_array_equal(gray, theirs)
-    else:
-        assert int(np.abs(gray.astype(int) - theirs.astype(int)).max()) <= 1
+    elif mode == "RGB":
+        assert int(np.abs(gray.astype(int) - want.astype(int)).max()) <= 1
 
 
 @pytest.mark.parametrize("ftype", [0, 1, 2, 3, 4])
@@ -170,15 +173,21 @@ def test_png_reader_undoes_each_filter_type(tmp_path, ftype):
 
 
 def test_png_reader_rejects_what_it_does_not_read(tmp_path):
+    """A sub-byte depth (a 4-bit palette) and a file that is no PNG: the
+    plain reader and the native codec both refuse them, with the reason."""
     from PIL import Image
 
     path = str(tmp_path / "p.png")
-    Image.fromarray(np.zeros((4, 4), np.uint8)).convert("P").save(path)
-    with pytest.raises(ValueError, match="only 8-bit"):
+    Image.fromarray(np.zeros((4, 4), np.uint8)).convert("P").save(path,
+                                                                  bits=4)
+    with pytest.raises(ValueError, match="only 8- and 16-bit"):
         ti.read_png(path)
+    with pytest.raises(ValueError, match="unsupported PNG"):
+        ti.read_png_gray(path)
     (tmp_path / "n.png").write_bytes(b"not a png")
-    with pytest.raises(ValueError, match="not a PNG"):
-        ti.read_png(str(tmp_path / "n.png"))
+    for read in (ti.read_png, ti.read_png_gray):
+        with pytest.raises(ValueError, match="not a PNG"):
+            read(str(tmp_path / "n.png"))
     with pytest.raises(TypeError):
         ti.write_png(np.zeros((4, 4), np.float32), path)
 
@@ -276,7 +285,6 @@ def test_batch_loader_matches_jax_loader(tmp_path, pad_mode, shuffle):
             assert float(got[-1].x[1:].max()) == -1.0
         firsts.append(got[0].x.numpy())
     assert shuffle != np.array_equal(firsts[0], firsts[1])
-    ours.close()
 
 
 def test_dataset_items_match_jax(tmp_path):
@@ -300,4 +308,3 @@ def test_loader_hands_decode_errors_to_the_consumer(tmp_path):
                          num_workers=1, device="cpu")
     with pytest.raises(ValueError, match="not a PNG"):
         list(loader)
-    loader.close()

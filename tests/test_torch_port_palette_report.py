@@ -73,7 +73,6 @@ def slice_run(tmp_path_factory):
         loader = BatchLoader(ImageDataset(manifest, SIZE), N_IMAGES,
                              pad_mode="zero", device="cpu")
         batch = next(iter(loader))
-        loader.close()
         pred, frames = api_model.predict(
             batch.x, generator=torch.Generator().manual_seed(0),
             output_process=True)
@@ -211,15 +210,18 @@ def test_palette_api_defaults_match_jax():
 
 
 def test_new_modules_import_without_jax_or_triton():
-    """The modules of the Palette slices, imported in a fresh interpreter
-    (the one ``fresh_interpreter_imports`` starts for every port module),
-    load neither JAX nor the JAX package nor triton."""
+    """The modules of the Palette slices and of the Lightning interop and
+    native codec, imported in a fresh interpreter (the one
+    ``fresh_interpreter_imports`` starts for every port module), load
+    neither JAX nor the JAX package nor triton, PIL or yaml."""
     result = fresh_interpreter_imports()
     for name in ["kernels.flash_attention", "ops.attention",
                  "models.diffusion_unet", "diffusion", "diffusion.schedule",
                  "diffusion.gaussian", "diffusion.sampler", "reporting", "api",
                  "train.ema", "train.state", "train.steps", "train.loop",
-                 "utils.logging", "utils.checkpoint", "main"]:
+                 "utils.logging", "utils.checkpoint", "main", "native",
+                 "native.png_native", "interop.lightning"]:
         assert "pai_tpu_torch." + name in result["modules"], name
-    banned = {"jax", "jaxlib", "flax", "optax", "orbax", "pai_tpu", "triton"}
+    banned = {"jax", "jaxlib", "flax", "optax", "orbax", "pai_tpu", "triton",
+              "PIL", "yaml"}
     assert not banned & set(result["loaded"])

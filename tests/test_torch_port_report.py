@@ -143,7 +143,6 @@ def test_api_predict_equals_the_reports_prediction(reports):
     loader = BatchLoader(ImageDataset(reports["manifest"], SIZE), BATCH,
                          pad_mode="zero", device="cpu")
     batch = next(iter(loader))
-    loader.close()
     pred = model.predict(batch.x)
     assert pred.shape == (BATCH, SIZE, SIZE, 1) and pred.dtype == torch.float32
     assert torch.equal(pred, model(batch.x.numpy()))  # arrays and __call__
@@ -242,6 +241,7 @@ def test_entry_points_default_to_the_card_and_raise_without_one(reports):
         lambda: report.main(["x", "-d", reports["manifest"], "-m",
                              "identity"]),
         lambda: Pix2Pix.load_from_checkpoint(reports["slot"]),
+        lambda: Pix2Pix.from_lightning_checkpoint("run.ckpt"),
         lambda: Pix2Pix(),
         lambda: AttentionUnetGAN(),
         lambda: ResUnetGAN(res_type="next"),
@@ -256,10 +256,11 @@ def test_entry_points_default_to_the_card_and_raise_without_one(reports):
 
 def test_unported_api_surface_names_the_roadmap():
     """Every class of the JAX package's API is ported and takes its family
-    from its name (``ResUnetGAN`` from ``res_type``); what the port's API
-    still lacks is ``from_lightning_checkpoint`` (ROADMAP.md Queue A item
-    6). A class without weights refuses to predict, and one loads a slot of
-    its family by the slot's hyperparameters."""
+    from its name (``ResUnetGAN`` from ``res_type``), with
+    ``from_lightning_checkpoint`` (ROADMAP.md Queue A item 6; held by
+    ``tests/test_torch_port_interop.py``). A class without weights refuses
+    to predict, and one loads a slot of its family by the slot's
+    hyperparameters."""
     names = {AttentionUnetGAN: "attention_unet", TransUnetGAN: "trans_unet",
              ResUnetGAN: "res18_unet", Pix2Pix: "pix2pix"}
     for cls, name in names.items():
@@ -268,9 +269,10 @@ def test_unported_api_surface_names_the_roadmap():
         assert model.hparams["channel_mults"] == "1,2"
         with pytest.raises(ValueError, match="no weights"):
             model.predict(np.zeros((1, 16, 16, 1), np.float32))
-        assert not hasattr(cls, "from_lightning_checkpoint")
         with pytest.raises(FileNotFoundError):
             cls.load_from_checkpoint("nowhere", device="cpu")
+        with pytest.raises(FileNotFoundError):
+            cls.from_lightning_checkpoint("nowhere.ckpt", device="cpu")
     for res_type in ("18", "50", "v2", "next"):
         assert ResUnetGAN(res_type=res_type, device="cpu").hparams[
             "model"] == f"res{res_type}_unet"
@@ -281,6 +283,8 @@ def test_port_imports_no_jax_and_none_of_the_helpers_it_replaces():
     flax, optax, orbax, pai_tpu, yaml, PIL and matplotlib unimported."""
     result = fresh_interpreter_imports()
     assert len(result["modules"]) >= 20, result["modules"]
+    for name in ("native", "native.png_native", "interop.lightning"):
+        assert "pai_tpu_torch." + name in result["modules"], name
     banned = {"jax", "jaxlib", "flax", "optax", "orbax", "pai_tpu", "yaml",
               "PIL", "matplotlib", "triton"}
     assert not banned & set(result["loaded"])

@@ -497,7 +497,6 @@ def test_image_data_module_matches_jax(small_world, stage):
                 assert a.n_valid == b.n_valid
                 np.testing.assert_array_equal(a.x.numpy(), np.asarray(b.x))
                 np.testing.assert_array_equal(a.y.numpy(), np.asarray(b.y))
-        loaders[0].close()
 
 
 @pytest.mark.parametrize("pad_mode", ["cycle", "zero"])
