@@ -110,6 +110,33 @@ printing one JSON line:
    ``global_step`` with its EMA update count carried on; ``export`` of the
    best slot bit-equal to the source's shadow and PatchGAN tensors.
 
+11. ``parallel`` — the multi-device layer on this one card. Ring attention
+   (``parallel.ring_attention.sequence_sharded_attention``) over 2 and 4
+   ranks, spawned together on the card over gloo (``--rank-job``), at
+   (2,4,16384,64) float32 and bfloat16 and (2,4,4096,128) float32, forward
+   and dq, dk, dv against the one-process ``FlashAttention`` on the card
+   (float32 2e-5 forward, 1e-4 of the largest gradient backward; bfloat16
+   2^-8 plus one bf16 unit), launches per rank and ring exactly n of
+   ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` where the shard
+   takes the flash hop (none on the einsum hop, where t/n < 2048), and each
+   ring's time beside the one-process time. ``pai_tpu_torch.main -m pix2pix
+   --fsdp`` on a world of one over NCCL (started by the Trainer from a
+   launcher's environment): 10 steps at the published widths, a
+   validation, slots, ``--resume`` to step 20, every loss and every slot
+   tensor bit-equal to the plain run's (cuDNN deterministic in both), step
+   times side by side. ``--tp 2`` Pix2Pix GAN with 2 ranks and ``--sp 2``
+   Palette at the CLI-default width (batch 2, 2 steps and a validation
+   whose sampling chain is cut from 100 steps to 5, its slots gathered but
+   not written: the ring's flash hops counted) through ``pai_tpu_torch.main.main``, each against a one-process
+   run from the same state: every step's loss within 1e-3; after the first
+   step, Adam's moments within 1e-3 of the largest of their chain and kind,
+   parameters within 1e-2 of the learning rate where the first moment is
+   at least 1e-3 of its tensor's largest and within two learning rates
+   where the gradient is float noise (``adam_agreement``); peak memory per
+   rank.
+   ``--fsdp`` with 2 ranks is not run here (FSDP2 over gloo on CUDA tensors
+   ends the process; a line says so); the CPU tests hold it.
+
 Then one line ``{"kernels": [...]}`` with, per kernel, its route, source, the
 TPU kernel it replaces, its launches in phase 3, its error against the plain
 version, its time, the plain version's time and the card's bound for the same
@@ -3231,6 +3258,608 @@ def phase_interop(device, workdir):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# parallel: the multi-device layer on one card (ranks over gloo)
+# ---------------------------------------------------------------------------
+# NCCL refuses two ranks of one communicator on one card ("Duplicate GPU
+# detected", tools/torch_gloo_cuda_probe.py), so the multi-rank checks run
+# their ranks on this card over gloo with CUDA tensors, through the code
+# NCCL would run; the probe found that gloo carries all-reduce, broadcast,
+# all-gather, reduce-scatter and FSDP2's collectives on CUDA tensors but not
+# point-to-point, which the ring stages through host memory (it reads the
+# group's backend). The world of one runs over NCCL. FSDP2's step over gloo
+# with CUDA tensors ends its process (SIGSEGV, the probe's fsdp2_step), so
+# ``--fsdp`` with 2 ranks does not run here: the phase says so, and the
+# multi-rank FSDP math is held by the CPU tests
+# (tests/test_torch_port_parallel.py).
+RING_CASES = (((2, 4, 16384, 64), torch.float32),
+              ((2, 4, 16384, 64), torch.bfloat16),
+              ((2, 4, 4096, 128), torch.float32))
+RING_WORLDS = (2, 4)
+RANK_JOB_TIMEOUT = 600
+PARALLEL_GAN_TRAIN, PARALLEL_GAN_STEPS = 16, 2
+PARALLEL_PALETTE_BATCH, PARALLEL_PALETTE_STEPS = 2, 2
+# the --sp 2 validation's sampling chain (the CLI's: 100 steps); each step
+# runs the UNet's 15 rings through host memory
+PARALLEL_PALETTE_CHAIN = 5
+GAN_LR = 2e-4
+# one process under --fsdp on a world of one (NCCL): 10 steps at batch 8, a
+# validation, --resume to step 20; bit-equal to the plain run
+FSDP1_TRAIN, FSDP1_VAL = 80, 16
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(job, world, workdir, spec, nccl_world_of_one=False):
+    """Run ``chip_smoke.py --rank-job job`` in ``world`` processes on this
+    card, all started together, and return each rank's JSON result. They
+    must end within RANK_JOB_TIMEOUT seconds; any that does not is
+    killed."""
+    port = free_port()
+    spec_path = os.path.join(workdir, f"{job}_{world}_spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    env = dict(os.environ)
+    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT"):
+        env.pop(key, None)
+    if nccl_world_of_one:  # a launcher's environment: the Trainer starts it
+        env.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    logs, procs = [], []
+    for rank in range(world):
+        log = open(os.path.join(workdir, f"{job}_{world}_rank{rank}.log"),
+                   "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank-job", job,
+             str(rank), str(world), str(port), spec_path],
+            stdout=log, stderr=subprocess.STDOUT, env=env))
+    start = time.perf_counter()
+    try:
+        for proc in procs:
+            left = RANK_JOB_TIMEOUT - (time.perf_counter() - start)
+            proc.wait(timeout=max(left, 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for log in logs:
+            log.close()
+    results = []
+    for rank, proc in enumerate(procs):
+        log_path = os.path.join(workdir, f"{job}_{world}_rank{rank}.log")
+        if proc.returncode != 0:
+            with open(log_path) as f:
+                tail = f.read()[-3000:]
+            raise SmokeFailure(f"rank {rank} of {job} (world {world}) "
+                               f"exited {proc.returncode}:\n{tail}")
+        with open(spec_path + f".rank{rank}") as f:
+            results.append(json.load(f))
+    return results
+
+
+def rank_ring(rank, world, spec):
+    """Ring attention over sp=world ranks at the Palette's shapes, against
+    the one-process FlashAttention on the card."""
+    from pai_tpu_torch import kernels
+    from pai_tpu_torch.kernels import flash_attention as fa
+    from pai_tpu_torch.parallel.mesh import make_mesh
+    from pai_tpu_torch.parallel.ring_attention import (
+        flash_hop_eligible, sequence_sharded_attention)
+
+    device = torch.device("cuda", 0)
+    mesh = make_mesh(world, sp=world, device_type="cuda")
+    out = []
+    for shape, dtype in RING_CASES:
+        q, k, v = random_qkv(shape, 300, device, dtype)
+        g = random_qkv(shape, 301, device, dtype)[0]
+
+        def ring():
+            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            o = sequence_sharded_attention(mesh, *leaves)
+            o.backward(g)
+            return o.detach(), [x.grad for x in leaves]
+
+        ring()  # warm: connections, staging buffers
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        start = time.perf_counter()
+        got, grads = ring()
+        torch.cuda.synchronize()
+        ring_ms = (time.perf_counter() - start) * 1e3
+        launches = dict(kernels.launch_counts)
+
+        def one():
+            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            o = fa.FlashAttention.apply(*leaves)
+            o.backward(g)
+            return o.detach(), [x.grad for x in leaves]
+
+        one()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        want, want_grads = one()
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - start) * 1e3
+        entry = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+                 "world": world,
+                 "hop": "flash" if flash_hop_eligible(shape[2] // world,
+                                                      shape[3]) else "einsum",
+                 "launches": {k: launches[k] for k in
+                              ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")},
+                 "ring_fwd_bwd_ms": ring_ms, "one_process_fwd_bwd_ms": one_ms,
+                 "finite": bool(torch.isfinite(got.float()).all()) and all(
+                     bool(torch.isfinite(x.float()).all()) for x in grads)}
+        scale = float(want.float().abs().max())
+        entry["out_max_abs_err"] = float((got.float() - want.float())
+                                         .abs().max())
+        if dtype == torch.float32:
+            entry["out_limit"] = FLASH_TOL
+        else:  # 2^-8 plus one bf16 unit at the largest output
+            unit = 2.0 ** (np.floor(np.log2(scale)) - 7)
+            entry["out_limit"] = FLASH_BF16_REL_TOL * max(1.0, scale) + unit
+        for tag, a, b in zip(("dq", "dk", "dv"), grads, want_grads):
+            scale = float(b.float().abs().max())
+            entry[f"{tag}_max_abs_err"] = float((a.float() - b.float())
+                                                .abs().max())
+            if dtype == torch.float32:
+                entry[f"{tag}_limit"] = FLASH_BWD_TOL * scale
+            else:  # 2^-8 plus one bf16 unit: each hop's gradient is rounded
+                # to bf16 (the kernels' output type) before the float32
+                # sum over hops, as in the JAX package's ring
+                unit = 2.0 ** (np.floor(np.log2(scale)) - 7)
+                entry[f"{tag}_limit"] = FLASH_BWD_BF16_REL_TOL * scale + unit
+        out.append(entry)
+        del q, k, v, g, got, grads, want, want_grads
+    return {"cases": out}
+
+
+def _instrument_steps(record, snapshot=False):
+    """Wrap the train-step factories so that every step records its loss
+    and its time (synchronised), and with ``snapshot`` the whole state
+    after the first step (``_state_on_host``: collective on a mesh) as
+    ``record["first"]``; returns a function that undoes it."""
+    from pai_tpu_torch.train import steps as steps_lib
+
+    real = {name: getattr(steps_lib, name) for name in
+            ("make_gan_train_step", "make_palette_train_step")}
+
+    def wrap(factory):
+        def make(*args, **kwargs):
+            step = factory(*args, **kwargs)
+
+            def timed(state, *batch):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                state, metrics = step(state, *batch)
+                loss = float(metrics["loss"])
+                record["steps"].append(
+                    {"ms": (time.perf_counter() - start) * 1e3, "loss": loss})
+                record["state"] = state
+                if snapshot and len(record["steps"]) == 1:
+                    record["first"] = _state_on_host(state)
+                return state, metrics
+            return timed
+        return make
+
+    for name, factory in real.items():
+        setattr(steps_lib, name, wrap(factory))
+
+    def undo():
+        for name, factory in real.items():
+            setattr(steps_lib, name, factory)
+    return undo
+
+
+def _shorten_sampling_chain(steps):
+    """Have the Trainer's validation sample with a cosine chain of ``steps``
+    steps instead of 100 (a cut of depth: every step runs the same UNet)."""
+    from pai_tpu_torch.diffusion import make_schedule
+    from pai_tpu_torch.train import steps as steps_lib
+
+    real = steps_lib.make_palette_sample_step
+
+    def make(unet, sched_inf, learn_var):
+        return real(unet, make_schedule("cosine", steps,
+                                        device=sched_inf.gammas.device),
+                    learn_var)
+    steps_lib.make_palette_sample_step = make
+
+
+def _state_on_host(state):
+    """The whole parameters, running statistics and Adam moments (gathered:
+    collective on a mesh) of a train state, on the host."""
+    from pai_tpu_torch.train import loop
+
+    flat = loop.full_train_state_dict(state)
+    return {k: v.cpu() for k, v in flat.items()
+            if not k.startswith("ema.") and not k.endswith(".step")}
+
+
+def adam_agreement(got, want, device):
+    """How far a train state ``got`` lies from ``want`` after the same
+    steps. Adam's first step moves every element by one learning rate
+    whatever its gradient, so parameters alone cannot show a wrong
+    gradient: the moments are read against the largest of their chain
+    (generator or discriminator) and kind (``exp_avg``, ``exp_avg_sq``).
+    Parameters are read where the first moment is at least 1e-3 of its
+    tensor's largest ("held") and elsewhere ("noise"); a tensor whose first
+    moment is below 1e-3 of its chain's largest (the biases a BatchNorm
+    takes away) is noise as a whole: Adam's step there follows the sign of
+    float noise. Each pair of tensors is read on ``device``."""
+    def kind(key, moment):
+        return ("discriminator" if key.startswith("opt.discriminator.")
+                else "generator") + "." + moment
+
+    top, moments = {}, {}
+    for key, value in want.items():
+        if key.startswith("opt."):
+            k = kind(key, key.rsplit(".", 1)[1])
+            top[k] = max(top.get(k, 0.0),
+                         float(value.to(device).abs().max()))
+    for key, value in want.items():
+        if key.startswith("opt."):
+            k = kind(key, key.rsplit(".", 1)[1])
+            err = float((got[key].to(device) - value.to(device)).abs().max()
+                        ) / max(top[k], 1e-30)
+            if err >= moments.get(k, (-1.0,))[0]:
+                moments[k] = (err, key)
+    held, noise = (0.0, None), (0.0, None)
+    for key, value in want.items():
+        mu = want.get(f"opt.{key}.exp_avg")
+        if mu is None:  # running statistics, counts, moments
+            continue
+        mu = mu.to(device).abs()
+        diff = (got[key].to(device) - value.to(device)).abs()
+        scale = float(mu.max())
+        large = mu >= 1e-3 * scale
+        if scale < 1e-3 * top[kind("opt." + key, "exp_avg")]:
+            large = torch.zeros_like(large)
+        if large.any() and float(diff[large].max()) >= held[0]:
+            held = (float(diff[large].max()), key)
+        if (~large).any() and float(diff[~large].max()) >= noise[0]:
+            noise = (float(diff[~large].max()), key)
+    running = [float((got[k].to(device) - want[k].to(device)).abs().max())
+               for k in want if "running" in k]
+    return {"moment_rel_err": {k: v[0] for k, v in moments.items()},
+            "moment_worst": {k: v[1] for k, v in moments.items()},
+            "held_param_diff": held[0], "held_param_diff_at": held[1],
+            "noise_param_diff": noise[0], "noise_param_diff_at": noise[1],
+            "max_running_diff": max(running, default=0.0),
+            "same_keys": sorted(got) == sorted(want)}
+
+
+def _no_slot_writes():
+    """Have the checkpoint manager gather every slot but write none;
+    returns a function that undoes it."""
+    from pai_tpu_torch.utils import checkpoint as ckpt_lib
+
+    real = ckpt_lib._write_slot
+    ckpt_lib._write_slot = lambda slot_dir, flat, meta: slot_dir
+
+    def undo():
+        ckpt_lib._write_slot = real
+    return undo
+
+
+def rank_cli(rank, world, spec):
+    """``pai_tpu_torch.main.main(argv)`` on this rank (and the runs after
+    it; with ``write_slots`` false, the slots gathered but not written);
+    with ``reference``, rank 0 then trains the same run on one process from
+    the same state (its slots not written) and compares."""
+    import torch.distributed as dist
+
+    from pai_tpu_torch import kernels
+    from pai_tpu_torch import main as train_main
+
+    torch.backends.cudnn.deterministic = spec.get("deterministic", False)
+    torch.backends.cudnn.benchmark = False
+    if spec.get("sample_steps"):
+        _shorten_sampling_chain(spec["sample_steps"])
+    result = {"runs": []}
+    for argv in spec["argvs"]:
+        record = {"steps": []}
+        undo = _instrument_steps(record, bool(spec.get("reference")))
+        undo_slots = (lambda: None) if spec.get("write_slots", True) \
+            else _no_slot_writes()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        start = time.perf_counter()
+        try:
+            summary = train_main.main(argv)
+        finally:
+            undo()
+            undo_slots()
+        torch.cuda.synchronize()
+        result["runs"].append({
+            "summary": summary, "steps": record["steps"],
+            "seconds": time.perf_counter() - start,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "launches": dict(kernels.launch_counts)})
+    if spec.get("reference"):
+        first = record["first"]
+        del record
+        dist.destroy_process_group()
+        if rank == 0:
+            import gc
+
+            gc.collect()
+            torch.cuda.empty_cache()
+            record = {"steps": []}
+            undo = _instrument_steps(record, snapshot=True)
+            undo_slots = _no_slot_writes()
+            start = time.perf_counter()
+            try:
+                train_main.main(spec["reference"])
+            finally:
+                undo()
+                undo_slots()
+            result["reference"] = {
+                "steps": record["steps"],
+                "seconds": time.perf_counter() - start,
+                **adam_agreement(first, record["first"],
+                                 torch.device("cuda", 0))}
+    return result
+
+
+def rank_job_main(argv):
+    """``chip_smoke.py --rank-job JOB RANK WORLD PORT SPEC``: one rank of a
+    parallel-phase job on this card (gloo; a world of one started by the
+    Trainer from the launcher's environment over NCCL)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    job, rank, world, port, spec_path = (argv[0], int(argv[1]),
+                                          int(argv[2]), int(argv[3]), argv[4])
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.cuda.set_device(0)
+    from pai_tpu_torch.config import apply_precision_policy
+
+    apply_precision_policy("32")
+    if world > 1:
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+            world_size=world, timeout=datetime.timedelta(seconds=300))
+    result = {"ring": rank_ring, "cli": rank_cli}[job](rank, world, spec)
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+    with open(spec_path + f".rank{rank}", "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def _steps_equal(a, b):
+    return [s["loss"] for s in a] == [s["loss"] for s in b]
+
+
+def phase_parallel(device, workdir):
+    """The multi-device layer on this card: ring attention over 2 and 4
+    ranks against the one-process kernels; ``--fsdp`` on a world of one over
+    NCCL bit-equal to the plain run; ``--tp 2`` Pix2Pix GAN and ``--sp 2``
+    Palette at the CLI-default width with 2 ranks, each against a
+    one-process run from the same state; a line saying ``--fsdp`` with 2
+    ranks is not run here."""
+    from pai_tpu_torch.train.state import palette_lr
+    from pai_tpu_torch.utils.checkpoint import load_checkpoint
+
+    out = {"phase": "parallel", "backend_multi_rank": "gloo (CUDA tensors)",
+           "backend_world_of_one": "nccl"}
+    seconds = {}
+    # ---- ring attention -------------------------------------------------
+    start = time.perf_counter()
+    ring = []
+    for world in RING_WORLDS:
+        results = spawn_ranks("ring", world, workdir, {})
+        for index, entry in enumerate(results[0]["cases"]):
+            for rank, res in enumerate(results):
+                case = res["cases"][index]
+                tag = f"ring {case['shape']} {case['dtype']} sp={world} " \
+                      f"rank {rank}"
+                check(case["finite"], f"{tag}: not finite")
+                check(case["out_max_abs_err"] <= case["out_limit"],
+                      f"{tag}: forward {case['out_max_abs_err']} > "
+                      f"{case['out_limit']}")
+                for g in ("dq", "dk", "dv"):
+                    check(case[f"{g}_max_abs_err"] <= case[f"{g}_limit"],
+                          f"{tag}: {g} {case[f'{g}_max_abs_err']} > "
+                          f"{case[f'{g}_limit']}")
+                want = world if case["hop"] == "flash" else 0
+                check(case["launches"] == {"flash_fwd": want,
+                                           "flash_bwd_dq": want,
+                                           "flash_bwd_dkv": want},
+                      f"{tag}: launches {case['launches']}, expected "
+                      f"{want} of each")
+            ring.append({**entry, "ranks": world, "max_over_ranks": {
+                k: max(res["cases"][index][k] for res in results)
+                for k in ("out_max_abs_err", "dq_max_abs_err",
+                          "dk_max_abs_err", "dv_max_abs_err",
+                          "ring_fwd_bwd_ms")}})
+    out["ring"] = ring
+    seconds["ring"] = time.perf_counter() - start
+
+    # ---- --fsdp on a world of one (NCCL) against the plain run ----------
+    start = time.perf_counter()
+    train = write_pairs(os.path.join(workdir, "fsdp1_train"), FSDP1_TRAIN, 40)
+    val = write_pairs(os.path.join(workdir, "fsdp1_val"), FSDP1_VAL, 41)
+
+    def gan_argv(name, root, extra=()):
+        return ["smoke", "-d", train, "-vd", val, "-m", "pix2pix",
+                "--loss-type", "gan", "--batch-size", str(GAN_BATCH),
+                "--val-epochs", "1", "--precision", "32", "--device",
+                "cuda", "--log-dir", os.path.join(root, "logs"),
+                "--ckpt-dir", os.path.join(root, "ckpt"), *extra]
+
+    runs = {}
+    for mode in ("plain", "fsdp"):
+        root = os.path.join(workdir, f"fsdp1_{mode}")
+        flags = ["--fsdp"] if mode == "fsdp" else []
+        spec = {"deterministic": True, "argvs": [
+            gan_argv(mode, root, flags + ["--epochs", "1"]),
+            gan_argv(mode, root, flags + ["--epochs", "2", "--resume"])]}
+        if mode == "plain":  # in this process, which has no process group
+            deterministic = torch.backends.cudnn.deterministic
+            try:
+                runs[mode] = rank_cli(0, 1, spec)
+            finally:
+                torch.backends.cudnn.deterministic = deterministic
+        else:
+            runs[mode] = spawn_ranks("cli", 1, workdir, spec,
+                                     nccl_world_of_one=True)[0]
+        runs[mode]["root"] = root
+    seconds["fsdp_world_of_one"] = time.perf_counter() - start
+    plain, fsdp = runs["plain"], runs["fsdp"]
+    for index in range(2):
+        check(_steps_equal(plain["runs"][index]["steps"],
+                           fsdp["runs"][index]["steps"]),
+              f"--fsdp on a world of one: run {index} losses differ from the "
+              "plain run's")
+        check(plain["runs"][index]["summary"] == {
+            **fsdp["runs"][index]["summary"],
+            "images_per_sec": plain["runs"][index]["summary"][
+                "images_per_sec"]},
+            "--fsdp on a world of one: validation differs")
+    n_equal = 0
+    for slot in ("best", "last"):
+        a, meta_a = load_checkpoint(os.path.join(plain["root"], "ckpt",
+                                                 "smoke", slot))
+        b, meta_b = load_checkpoint(os.path.join(fsdp["root"], "ckpt",
+                                                 "smoke", slot))
+        check(a.keys() == b.keys() and meta_a["step"] == meta_b["step"],
+              f"--fsdp on a world of one: {slot} slot differs in layout")
+        for key in a:
+            check(torch.equal(a[key], b[key]),
+                  f"--fsdp on a world of one: {slot} {key} differs")
+            n_equal += 1
+    step_ms = {mode: statistics.median(
+        s["ms"] for s in runs[mode]["runs"][0]["steps"][1:])
+        for mode in runs}
+    out["fsdp_world_of_one"] = {
+        "steps": len(plain["runs"][0]["steps"])
+        + len(plain["runs"][1]["steps"]),
+        "losses_bit_equal": True, "slot_tensors_bit_equal": n_equal,
+        "step_ms_median": step_ms, "cudnn_deterministic": True}
+
+    # ---- multi-rank runs through the CLI against one process ------------
+    def held(name, world, argv, reference, lr, **spec):
+        results = spawn_ranks("cli", world, workdir,
+                              {"argvs": [argv], "reference": reference,
+                               **spec})
+        ref = results[0]["reference"]
+        runs = [r["runs"][0] for r in results]
+        got = [s["loss"] for s in runs[0]["steps"]]
+        want = [s["loss"] for s in ref["steps"]]
+        check(len(got) == len(want) and len(got) > 0,
+              f"{name}: {len(got)} steps against {len(want)}")
+        for r in runs[1:]:
+            check([s["loss"] for s in r["steps"]] == got,
+                  f"{name}: the ranks' losses differ")
+        rel_err = max(abs(a - b) / max(abs(b), 1e-30)
+                      for a, b in zip(got, want))
+        check(rel_err <= 1e-3, f"{name}: losses {got} against {want}")
+        check(ref["same_keys"], f"{name}: state names differ")
+        for kind, err in ref["moment_rel_err"].items():
+            check(err <= 1e-3, f"{name}: Adam {kind} {err} of the largest "
+                  f"from the one-process run's ({ref['moment_worst'][kind]})")
+        # the state after the first step: from there on two runs part by
+        # float noise alone (PERF.md), so later states are read by their
+        # losses
+        held_bound, noise_bound = 1e-2 * lr, 2 * lr
+        check(ref["held_param_diff"] <= held_bound,
+              f"{name}: parameters {ref['held_param_diff']} from the "
+              f"one-process run's ({ref['held_param_diff_at']}), bound "
+              f"{held_bound}")
+        check(ref["noise_param_diff"] <= noise_bound,
+              f"{name}: parameters at float-noise gradients "
+              f"{ref['noise_param_diff']} from the one-process run's "
+              f"({ref['noise_param_diff_at']}), bound {noise_bound}")
+        return {"ranks": world, "steps": len(got), "losses": got,
+                "one_process_losses": want, "loss_rel_err": rel_err,
+                "adam_moment_rel_err": ref["moment_rel_err"],
+                "held_param_diff": ref["held_param_diff"],
+                "held_param_diff_at": ref["held_param_diff_at"],
+                "held_param_bound": held_bound,
+                "noise_param_diff": ref["noise_param_diff"],
+                "noise_param_diff_at": ref["noise_param_diff_at"],
+                "noise_param_bound": noise_bound,
+                "max_running_stat_diff": ref["max_running_diff"],
+                "step_ms_median": statistics.median(
+                    s["ms"] for s in runs[0]["steps"]),
+                "one_process_step_ms_median": statistics.median(
+                    s["ms"] for s in ref["steps"]),
+                "peak_bytes_per_rank": [r["peak_bytes"] for r in runs],
+                "run_seconds": runs[0]["seconds"],
+                "one_process_seconds": ref["seconds"],
+                "launches_rank0": runs[0]["launches"],
+                "summary": runs[0]["summary"]}
+
+    gan_train = write_pairs(os.path.join(workdir, "par_train"),
+                            PARALLEL_GAN_TRAIN, 42)
+
+    def par_argv(root, extra, data=gan_train, val=None):
+        argv = ["smoke", "-d", data, "-m", "pix2pix", "--loss-type", "gan",
+                "--batch-size", str(GAN_BATCH), "--epochs", "1",
+                "--val-epochs", "1", "--precision", "32", "--device", "cuda",
+                "--log-dir", os.path.join(root, "logs"),
+                "--ckpt-dir", os.path.join(root, "ckpt"), *extra]
+        return argv + (["-vd", val] if val else [])
+
+    emit({"phase": "parallel", "fsdp2": "not run on the card: FSDP2's "
+          "collectives over gloo on CUDA tensors end the process "
+          "(tools/torch_gloo_cuda_probe.py), and NCCL refuses two ranks "
+          "on one card; --fsdp with several ranks is held by "
+          "tests/test_torch_port_parallel.py on the CPU"})
+    start = time.perf_counter()
+    root = os.path.join(workdir, "tp2")
+    out["tp2"] = held("tp2", 2, par_argv(root, ["--tp", "2"]),
+                      par_argv(root + "_one", []), GAN_LR)
+    seconds["tp2"] = time.perf_counter() - start
+    start = time.perf_counter()
+    # ---- --sp 2 Palette at the CLI-default width ------------------------
+    pal_train = write_pairs(os.path.join(workdir, "sp_train"),
+                            PARALLEL_PALETTE_BATCH * PARALLEL_PALETTE_STEPS,
+                            43)
+    pal_val = write_pairs(os.path.join(workdir, "sp_val"),
+                          PARALLEL_PALETTE_BATCH, 44)
+    root = os.path.join(workdir, "sp2")
+
+    def pal_argv(root, extra, val=None):
+        argv = ["smoke", "-d", pal_train, "-m", "palette", "--batch-size",
+                str(PARALLEL_PALETTE_BATCH), "--epochs", "1",
+                "--val-epochs", "1", "--precision", "32", "--device", "cuda",
+                "--log-dir", os.path.join(root, "logs"),
+                "--ckpt-dir", os.path.join(root, "ckpt"), *extra]
+        return argv + (["-vd", val] if val else [])
+
+    out["sp2_palette"] = held("sp2 palette", 2,
+                              pal_argv(root, ["--sp", "2"], pal_val),
+                              pal_argv(root + "_one", []), palette_lr(0),
+                              sample_steps=PARALLEL_PALETTE_CHAIN,
+                              write_slots=False)
+    launches = out["sp2_palette"]["launches_rank0"]
+    check(launches["flash_fwd"] > 0 and launches["flash_bwd_dq"] > 0
+          and launches["flash_bwd_dkv"] > 0,
+          f"sp2 palette: the ring launched {launches}")
+    check(np.isfinite(out["sp2_palette"]["summary"]["val_ssim"]),
+          "sp2 palette: validation not finite")
+    seconds["sp2_palette"] = time.perf_counter() - start
+    ring_launches = {k: ring[0]["launches"][k] for k in ring[0]["launches"]}
+    emit({**out, "seconds": seconds})
+    return {"ring": ring_launches, "palette_sp2": launches}
+
+
 def read_csv_steps(path):
     """The ``step`` column of a metrics CSV."""
     with open(path) as f:
@@ -3242,7 +3871,7 @@ def read_csv_steps(path):
 def kernels_line(cases, report_batch, launches, flash_cases,
                  palette_launches, bwd_cases, train_launches, gan_launches,
                  family_launches, family_report_launches,
-                 interop_launches):
+                 interop_launches, parallel_launches):
     described = {
         "ssim_map": ("pai_tpu_torch/kernels/csrc/ssim.cu",
                      "pai_tpu/kernels/ssim_pallas.py:137"),
@@ -3303,6 +3932,9 @@ def kernels_line(cases, report_batch, launches, flash_cases,
         "kernel_us": main["kernel_us"], "tflops": main["tflops"],
         "other_shapes": flash_cases[1:]})
     out[-1]["launches_training_path"] = train_launches["flash_fwd"]
+    out[-1]["launches_ring_path"] = parallel_launches["ring"]["flash_fwd"]
+    out[-1]["launches_sp2_palette_path"] = \
+        parallel_launches["palette_sp2"]["flash_fwd"]
     main = bwd_cases[0]  # (4,4,16384,64): the longer of the training path's
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         out.append({
@@ -3339,6 +3971,9 @@ def kernels_line(cases, report_batch, launches, flash_cases,
                  "plain_ms": e.get("plain_ms"),
                  "library_ms": e.get("library_ms")}
                 for e in bwd_cases[1:]]})
+        out[-1]["launches_ring_path"] = parallel_launches["ring"][name]
+        out[-1]["launches_sp2_palette_path"] = \
+            parallel_launches["palette_sp2"][name]
     return {"kernels": out}
 
 
@@ -3393,6 +4028,9 @@ def main():
             "families", phase_families, device, workdir)
     with tempfile.TemporaryDirectory(prefix="pai_smoke_interop_") as workdir:
         interop_launches = timed("interop", phase_interop, device, workdir)
+    with tempfile.TemporaryDirectory(prefix="pai_smoke_parallel_") as workdir:
+        parallel_launches = timed("parallel", phase_parallel, device,
+                                  workdir)
     for name in ("ssim_map", "ssim_scalar"):
         check(launches[name] > 0,
               f"kernel {name} was not launched on the Pix2Pix path")
@@ -3413,7 +4051,7 @@ def main():
     emit(kernels_line(cases, report_batch, launches, flash_cases,
                       palette_launches, bwd_cases, train_launches,
                       gan_launches, family_launches, family_report_launches,
-                      interop_launches))
+                      interop_launches, parallel_launches))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -3422,6 +4060,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-job"]:
+        sys.exit(rank_job_main(sys.argv[2:]))
     try:
         sys.exit(main())
     except SmokeFailure as failure:

@@ -65,9 +65,10 @@ class _Experiment:
     def fit(self, name: str, data: str, val_data: Optional[str] = None,
             **overrides) -> Dict[str, float]:
         """Train with ``train.loop.Trainer`` (``overrides`` are train-CLI
-        hparams, e.g. ``epochs``, ``batch_size``, ``ckpt_dir``; they become
-        part of this model's configuration) and adopt the weights of the
-        run's ``last`` slot."""
+        hparams, e.g. ``epochs``, ``batch_size``, ``ckpt_dir``, and the
+        multi-device ``tp``, ``sp``, ``fsdp``, each rank of a launched world
+        calling ``fit``; they become part of this model's configuration) and
+        adopt the weights of the run's ``last`` slot."""
         from pai_tpu_torch.restore import rebuild_eval_model
         from pai_tpu_torch.train.loop import Trainer
 

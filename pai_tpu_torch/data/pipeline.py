@@ -36,6 +36,7 @@ import torch
 from pai_tpu_torch.config import resolve_device
 from pai_tpu_torch.data.manifest import load_manifest
 from pai_tpu_torch.native import png_native
+from pai_tpu_torch.parallel.distributed import local_batch_rows
 from pai_tpu_torch.utils.images import read_png_gray_plain
 
 
@@ -138,14 +139,23 @@ class BatchLoader:
     """Threaded, prefetching batch iterator with a fixed batch shape.
 
     ``shuffle=True`` reshuffles every epoch with a per-epoch seed. Batches
-    arrive on ``device`` (default: the card) already normalised."""
+    arrive on ``device`` (default: the card) already normalised.
+
+    ``process_index``/``process_count``: on a mesh with ``process_count`` dp
+    ranks, this rank decodes and yields only its rows of every global batch
+    (``parallel.distributed.local_batch_rows``, as
+    ``pai_tpu/data/pipeline.py:245-262``); the global batch's order,
+    padding and ``n_valid`` are the same on every rank."""
 
     def __init__(self, dataset: ImageDataset, batch_size: int,
                  shuffle: bool = False, pad_mode: str = "cycle",
                  seed: int = 0, num_workers: int = 8, prefetch: int = 4,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 process_index: int = 0, process_count: int = 1):
         if pad_mode not in ("cycle", "zero"):
             raise ValueError(f"pad_mode must be 'cycle' or 'zero': {pad_mode}")
+        self.rows = local_batch_rows(batch_size, process_index,
+                                     process_count)
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -168,8 +178,8 @@ class BatchLoader:
         return order
 
     def epoch_batches(self) -> List[Tuple[List[int], int]]:
-        """This epoch's ``(indices, n_valid)`` per batch; index -1 is a zero
-        pad row. Advances the epoch counter."""
+        """This epoch's ``(indices, n_valid)`` per batch (this rank's rows of
+        it); index -1 is a zero pad row. Advances the epoch counter."""
         order = self._epoch_order()
         self.epoch += 1
         bs = self.batch_size
@@ -182,7 +192,7 @@ class BatchLoader:
                     idx = idx + [int(j) for j in order[: bs - n_valid]]
                 else:
                     idx = idx + [-1] * (bs - n_valid)
-            batches.append((idx, n_valid))
+            batches.append(([idx[i] for i in self.rows], n_valid))
         return batches
 
     def _assemble_u8(self, idx: Sequence[int]

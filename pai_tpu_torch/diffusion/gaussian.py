@@ -26,6 +26,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from pai_tpu_torch.diffusion.schedule import DiffusionSchedule
+from pai_tpu_torch.parallel.mesh import draw_rows
 
 Step = Union[int, torch.Tensor]
 
@@ -87,14 +88,16 @@ def q_sample(sched: DiffusionSchedule, y_0: torch.Tensor, t: torch.Tensor,
     between gamma_{t-1} and gamma_t) are drawn from ``generator`` unless
     given, so that two implementations can be fed the same draws."""
     if noise is None:
-        noise = torch.randn(y_0.shape, generator=generator,
-                            device=y_0.device, dtype=torch.float32)
+        noise = draw_rows(lambda shape: torch.randn(
+            shape, generator=generator, device=y_0.device,
+            dtype=torch.float32), y_0.shape)
     noise = noise * (t > 0).reshape(-1, 1, 1, 1)
     gamma_prev = _bcast(sched.gammas_prev, t)
     gamma_cur = _bcast(sched.gammas, t)
     if u is None:
-        u = torch.rand(gamma_cur.shape, generator=generator,
-                       device=y_0.device, dtype=torch.float32)
+        u = draw_rows(lambda shape: torch.rand(
+            shape, generator=generator, device=y_0.device,
+            dtype=torch.float32), gamma_cur.shape)
     else:
         u = u.reshape(gamma_cur.shape)
     gamma = (gamma_cur - gamma_prev) * u + gamma_prev

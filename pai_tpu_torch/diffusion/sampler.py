@@ -1,7 +1,7 @@
 """DDPM reverse sampler, counterpart of ``pai_tpu/diffusion/sampler.py``.
 
 The JAX package compiles the whole chain into one ``lax.scan``; here it is a
-Python loop over ``t = T-1 .. 0`` under ``torch.inference_mode()`` that never
+Python loop over ``t = T-1 .. 0`` under ``torch.no_grad()`` that never
 waits for the device: ``t`` is a Python int, the schedule lives on the device
 and is indexed there, noise is drawn on the device from the generator, and
 kept frames go into a buffer allocated before the loop. The host only
@@ -17,6 +17,7 @@ import torch
 
 from pai_tpu_torch.diffusion.gaussian import p_mean_variance
 from pai_tpu_torch.diffusion.schedule import DiffusionSchedule
+from pai_tpu_torch.parallel.mesh import draw_rows
 
 
 def capture_steps(timesteps: int, capture_every: int) -> list:
@@ -48,10 +49,11 @@ def ddpm_sample(
     draws.
     """
     n = x.shape[0]
-    with torch.inference_mode():
+    with torch.no_grad():
         if y_T is None:
-            y_T = torch.randn(x.shape, generator=generator, device=x.device,
-                              dtype=torch.float32)
+            y_T = draw_rows(lambda shape: torch.randn(
+                shape, generator=generator, device=x.device,
+                dtype=torch.float32), x.shape)
         y_t = y_T.to(device=x.device, dtype=torch.float32)
         frames = None
         if capture_every:
@@ -68,8 +70,9 @@ def ddpm_sample(
             # one draw per step, used or not, so the stream does not depend
             # on where the masking starts
             noise = step_noise[i].to(x.device) if step_noise is not None \
-                else torch.randn(y_t.shape, generator=generator,
-                                 device=x.device, dtype=torch.float32)
+                else draw_rows(lambda shape: torch.randn(
+                    shape, generator=generator, device=x.device,
+                    dtype=torch.float32), y_t.shape)
             y_t = mean + torch.exp(0.5 * log_variance) * noise if t > 1 \
                 else mean
             if capture_every and t % capture_every == 0:

@@ -11,9 +11,16 @@ Every ``-m`` trains: ``pix2pix`` (the default), ``attention_unet``,
 needs a mults list its ViT can cut into patches, e.g. ``--channel-mults
 1,2,2,4,4``), and ``palette`` (DDPM training, validation with the 100-step
 chain), validated and checkpointed (best/last) on validation SSIM.
-``--tp``/``--sp`` other than 1 and ``--fsdp`` raise ``NotImplementedError``
-(ROADMAP.md Queue A item 7). Runs on the card unless ``--device cpu`` is
-given.
+Runs on the card unless ``--device cpu`` is given.
+
+Multi-device: one process per rank, e.g. ``torchrun --nproc-per-node 4 -m
+pai_tpu_torch.main run -d train.yaml -vd val.yaml --tp 2`` (NCCL on CUDA
+ranks, gloo on CPU ranks; ``train.loop.Trainer``): ``--tp N`` splits the
+large convolution kernels on their output channels over N ranks, ``--sp N``
+runs the diffusion UNet's attention as ring attention over N ranks, and
+``--fsdp`` shards both networks over the data-parallel ranks (FSDP2); the
+remaining factor of the world is data parallel. A world that ``tp * sp``
+does not divide raises ``ValueError``, as in the JAX package.
 """
 
 import argparse
@@ -79,18 +86,19 @@ def build_parser() -> ArgumentParser:
                         help="Write a torch.profiler trace of the first "
                              "training steps to this directory.")
     parser.add_argument("--tp", default=1, type=int,
-                        help="Tensor-parallel degree (not ported: must be 1).")
+                        help="Tensor-parallel degree: convolution kernels "
+                             "split on their output channels.")
     parser.add_argument("--scan-steps", default=1, type=int,
                         help="Accepted for the JAX package's surface: must "
                              "divide the 10-step log cadence; the steps run "
                              "one by one.")
     parser.add_argument("--sp", default=1, type=int,
-                        help="Sequence-parallel degree (not ported: must be "
-                             "1).")
+                        help="Sequence-parallel degree: ring attention over "
+                             "the tokens.")
     parser.add_argument("--fsdp", default=False,
                         action=argparse.BooleanOptionalAction,
-                        help="Shard parameters and optimizer state (not "
-                             "ported).")
+                        help="Shard parameters and optimizer state over the "
+                             "data-parallel ranks (FSDP2).")
     parser.add_argument("--warmup-unit", default="epoch",
                         choices=("epoch", "step"),
                         help="Palette LinearLR warmup unit: 'epoch' matches "

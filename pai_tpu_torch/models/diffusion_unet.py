@@ -51,6 +51,7 @@ from pai_tpu_torch.ops import (BatchNorm, Conv, Dense, Dropout, SiLU,
                                avg_pool_2x, gamma_embedding, round_to_compute,
                                upsample_nearest_2x)
 from pai_tpu_torch.ops.attention import multihead_attention
+from pai_tpu_torch.parallel.context import get_mesh_context
 from pai_tpu_torch.ops.layers import _bias_after_rounding, bf16_autocast
 
 
@@ -167,12 +168,16 @@ class AttentionBlock(nn.Module):
         qkv = self.qkv(self.norm(tokens))
         qkv = qkv.reshape(n, t, self.num_heads, 3, c // self.num_heads)
         q, k, v = (qkv[:, :, :, i].permute(0, 2, 1, 3) for i in range(3))
+        # under a mesh, the context of this forward goes along: the
+        # recomputation runs on autograd's thread, where it is not set
+        context = get_mesh_context()
+        args = (q, k, v) if context is None else (q, k, v, context)
         if torch.is_grad_enabled() and qkv.requires_grad:
             # recomputed in the backward pass (the reference's always-on
             # checkpointing, the JAX module's jax.checkpoint)
-            a = checkpoint(multihead_attention, q, k, v, use_reentrant=False)
+            a = checkpoint(multihead_attention, *args, use_reentrant=False)
         else:
-            a = multihead_attention(q, k, v)          # (N, heads, T, D)
+            a = multihead_attention(*args)            # (N, heads, T, D)
         a = a.permute(0, 2, 1, 3).reshape(n, t, c)
         out = tokens + self.proj_out(a).to(tokens.dtype)
         return out.reshape(n, hh, ww, c).permute(0, 3, 1, 2)

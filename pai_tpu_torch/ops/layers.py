@@ -53,6 +53,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from pai_tpu_torch.parallel.mesh import draw_rows
+
 
 def weak_scalar(value: float, dtype: torch.dtype) -> float:
     """``value`` rounded to ``dtype``, as JAX rounds a Python scalar (weakly
@@ -188,6 +190,31 @@ def _bias_after_rounding(op, x: torch.Tensor, weight: torch.Tensor,
     return y.float() + b.float() if float32_sum else y + b
 
 
+def _tp_split(layer: nn.Module, x: torch.Tensor, op) -> torch.Tensor:
+    """``op(x, weight, bias)`` of a convolution, bias rounded as
+    ``_bias_after_rounding`` rounds it. Where tensor parallelism split the
+    kernel on its output channels (``layer.tp_shard``), this rank computes
+    its share of them from the whole input (whose gradient is summed over
+    the tp group) and the ranks' shares are gathered (whose gradient is this
+    rank's share)."""
+    shard = layer.tp_shard
+    if shard is None:
+        return _bias_after_rounding(op, x, layer.weight, layer.bias,
+                                    (-1, 1, 1), layer.float32_sum)
+    from pai_tpu_torch.parallel.distributed import copy_to_group, gather_dim
+
+    per = shard.full // shard.size
+    bias = None if layer.bias is None \
+        else copy_to_group(layer.bias, shard.group).narrow(
+            0, shard.rank * per, per)
+    y = _bias_after_rounding(op, copy_to_group(x, shard.group), layer.weight,
+                             bias, (-1, 1, 1), layer.float32_sum)
+    y = gather_dim(y, shard.group, 1)
+    if x.is_contiguous(memory_format=torch.channels_last):
+        y = y.contiguous(memory_format=torch.channels_last)
+    return y
+
+
 class Conv(nn.Conv2d):
     """``float32_sum``: a BatchNorm or a float32 output reads the output, so
     under bfloat16 autocast it is the float32 sum of the rounded product and
@@ -206,9 +233,10 @@ class Conv(nn.Conv2d):
         self.float32_sum = float32_sum
         _init(self, init_mode, generator)
 
+    tp_shard = None  # set by parallel.partitioning when the kernel is split
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _bias_after_rounding(self._conv_forward, x, self.weight,
-                                    self.bias, (-1, 1, 1), self.float32_sum)
+        return _tp_split(self, x, self._conv_forward)
 
 
 class Dense(nn.Linear):
@@ -240,14 +268,15 @@ class ConvTranspose(nn.ConvTranspose2d):
         self.float32_sum = float32_sum
         _init_normal(self, generator)
 
+    tp_shard = None  # set by parallel.partitioning when the kernel is split
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         def op(x, weight, bias):
             return nn.functional.conv_transpose2d(
                 x, weight, bias, self.stride, self.padding,
                 self.output_padding, self.groups, self.dilation)
 
-        return _bias_after_rounding(op, x, self.weight, self.bias,
-                                    (-1, 1, 1), self.float32_sum)
+        return _tp_split(self, x, op)
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -267,6 +296,13 @@ class BatchNorm(nn.BatchNorm2d):
         if tokens:  # (N, L, C) seen as channels_last (N, C, L, 1): no copy
             x = x.transpose(1, 2).unsqueeze(-1)
         bf16 = x.dtype == torch.bfloat16 or bf16_autocast(x)
+        if self.training:
+            from pai_tpu_torch.parallel.mesh import dp_of_context
+
+            dp, _, group = dp_of_context()
+            if dp > 1:
+                y = self._global_batch_norm(x, bf16, group)
+                return y.squeeze(-1).transpose(1, 2) if tokens else y
         if self.training and x.numel() == x.shape[1]:
             y = self._one_value_per_channel(x, bf16)
             return y.squeeze(-1).transpose(1, 2) if tokens else y
@@ -291,6 +327,44 @@ class BatchNorm(nn.BatchNorm2d):
             self.running_var.data.mul_((n - 1) / n).add_(old_var,
                                                          alpha=(1 - m) / n)
         return y.squeeze(-1).transpose(1, 2) if tokens else y
+
+    def _global_batch_norm(self, x: torch.Tensor, bf16: bool, group
+                           ) -> torch.Tensor:
+        """Train mode on a dp group: the statistics of the global batch, as
+        XLA computes flax's ``BatchNorm`` on a batch sharded over 'dp'
+        (``pai_tpu/ops/layers.py:166-169``). Count, sum and sum of squares
+        per channel are summed over the group in float32, differentiably
+        (the gradient of each rank's sums is the sum of every rank's), and
+        flax's fast variance ``E[x^2] - E[x]^2``, clipped at 0, normalises;
+        the running statistics move toward the global mean and biased
+        variance. Over one value per channel in all it gives flax's
+        answer (the output is the bias)."""
+        from pai_tpu_torch.parallel.distributed import all_reduce_sum
+
+        shape = (1, -1, 1, 1)
+        c = x.shape[1]
+        with torch.autocast(device_type=x.device.type, enabled=False):
+            x32 = x.float()
+            count = torch.full((1,), float(x32.numel() // c),
+                               dtype=torch.float32, device=x.device)
+            sums = all_reduce_sum(torch.cat(
+                [x32.sum(dim=(0, 2, 3)), (x32 * x32).sum(dim=(0, 2, 3)),
+                 count]), group)
+            n = sums[2 * c]
+            mean = sums[:c] / n
+            var = torch.maximum(sums[c:2 * c] / n - mean * mean,
+                                torch.zeros_like(mean))
+            mul = torch.rsqrt(var + self.eps) * self.weight
+            y = (x32 - mean.view(shape)) * mul.view(shape) \
+                + self.bias.view(shape)
+        if self.track_running_stats:
+            m = self.momentum if self.momentum is not None \
+                else 1.0 / float(self.num_batches_tracked + 1)
+            with torch.no_grad():
+                self.running_mean.data.lerp_(mean.detach(), m)
+                self.running_var.data.lerp_(var.detach(), m)
+                self.num_batches_tracked.data.add_(1)
+        return y.to(torch.bfloat16 if bf16 else x.dtype)
 
     def _one_value_per_channel(self, x: torch.Tensor, bf16: bool
                                ) -> torch.Tensor:
@@ -386,7 +460,13 @@ class Dropout(nn.Module):
         if self.rate == 0.0 or not self.training:
             return x
         keep = 1.0 - self.rate
-        mask = torch.empty_like(x).bernoulli_(keep, generator=self.generator)
+        # a global draw keeps x's strides (rows outermost), so each rank's
+        # rows hold what a one-process run draws for them
+        mask = draw_rows(lambda shape: torch.empty_strided(
+            shape, x.stride(), dtype=x.dtype, device=x.device).bernoulli_(
+                keep, generator=self.generator)
+            if shape != x.shape else torch.empty_like(x).bernoulli_(
+                keep, generator=self.generator), x.shape)
         return x * (mask / keep)
 
     def extra_repr(self) -> str:
@@ -407,9 +487,10 @@ class Dropout2d(nn.Module):
         if self.rate == 0.0 or not self.training:
             return x
         keep = 1.0 - self.rate
-        mask = torch.empty((x.shape[0], x.shape[1], 1, 1), dtype=x.dtype,
-                           device=x.device)
-        mask.bernoulli_(keep, generator=self.generator)
+        mask = draw_rows(lambda shape: torch.empty(
+            shape, dtype=x.dtype, device=x.device).bernoulli_(
+                keep, generator=self.generator),
+            (x.shape[0], x.shape[1], 1, 1))
         return x * (mask / keep)
 
     def extra_repr(self) -> str:

@@ -18,12 +18,26 @@ epoch loop, validation cadence, metric logging, best/last checkpoints.
   weights are the EMA's.
 
 Every generator family trains: the seven GAN families (the five losses, with
-the PatchGAN for ``gan``) and Palette. The multi-device options (``--tp``,
-``--sp``, ``--fsdp``) are ROADMAP.md Queue A item 7 and raise
-``NotImplementedError``. ``--scan-steps K`` is accepted and runs K ordinary
+the PatchGAN for ``gan``) and Palette. ``--scan-steps K`` is accepted and runs K ordinary
 steps (the JAX package folds them into one compiled ``lax.scan``; the result
 is the same). ``--profile-dir`` writes a ``torch.profiler`` trace of the first
 12 steps there.
+
+Multi-device (``pai_tpu/train/loop.py:122-170``): one process per rank,
+started by a launcher (``torchrun --nproc-per-node N``; or a process group the
+caller made). The mesh is ``('dp', 'tp'[, 'sp'])`` with ``tp`` and ``sp``
+from ``--tp``/``--sp`` and ``dp = gcd(batch_size, world / (tp * sp))``; a
+world that ``tp * sp`` does not divide, or that dp does not then fill,
+raises the JAX package's ``ValueError`` before anything is written. Each dp
+index loads and trains on its rows of every global batch; ``--tp`` splits
+the large convolution kernels on their output channels, ``--sp`` runs the
+UNet's attention as ring attention, ``--fsdp`` shards both networks with
+FSDP2 over dp (a dp of one replicates, as the JAX rule does). The mesh is
+installed in ``parallel.context`` for the length of ``fit``. Validation
+gathers every rank's per-image values in rank order. IO is rank zero's:
+CSV, hparams, PNGs and prints; checkpoint saves are collective (every rank
+gathers the full state, rank zero writes it), so a slot is the same whatever
+the mix, and resumes under any other.
 """
 
 from __future__ import annotations
@@ -36,6 +50,7 @@ from typing import Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pai_tpu_torch.config import (TRAIN_DEFAULTS, apply_precision_policy,
                                   compute_dtype, resolve_device,
@@ -43,6 +58,15 @@ from pai_tpu_torch.config import (TRAIN_DEFAULTS, apply_precision_policy,
 from pai_tpu_torch.data import BatchLoader, ImageDataset
 from pai_tpu_torch.diffusion import make_schedule
 from pai_tpu_torch.models import Discriminator
+from pai_tpu_torch.parallel.context import set_mesh_context
+from pai_tpu_torch.parallel.distributed import (all_gather_cat,
+                                                launcher_world,
+                                                maybe_initialize_distributed)
+from pai_tpu_torch.parallel.mesh import (axis_group, axis_rank, axis_size,
+                                         make_mesh)
+from pai_tpu_torch.parallel.partitioning import (TpShard, full_tensor,
+                                                 local_share, reshard,
+                                                 shard_state, tp_layouts)
 from pai_tpu_torch.restore import build_generator_from_hparams
 from pai_tpu_torch.train import steps as steps_lib
 from pai_tpu_torch.train.state import GanTrainState, PaletteTrainState
@@ -87,25 +111,61 @@ def train_state_dict(state: TrainState) -> Dict[str, torch.Tensor]:
     return flat
 
 
+def _tp_layouts(state: TrainState) -> Dict[str, TpShard]:
+    """``{parameter slot name: TpShard}`` of the kernels tp split."""
+    layouts: Dict[str, TpShard] = {}
+    for prefix, module, _ in _networks(state):
+        layouts.update(tp_layouts(module, prefix))
+    return layouts
+
+
+def _layout_of(key: str, layouts: Mapping[str, TpShard]) -> Optional[TpShard]:
+    """The split of the parameter a slot entry belongs to (its EMA shadow and
+    Adam moments are split as it is)."""
+    if key.startswith(EMA_PREFIX):
+        key = key[len(EMA_PREFIX):]
+    elif key.startswith(OPT_PREFIX):
+        key = key[len(OPT_PREFIX):].rsplit(".", 1)[0]
+    return layouts.get(key)
+
+
+def full_train_state_dict(state: TrainState) -> Dict[str, torch.Tensor]:
+    """``train_state_dict`` with every tensor whole: FSDP shares and tp
+    shares gathered. Collective on a mesh: every rank calls it."""
+    for _, module, _ in _networks(state):
+        reshard(module)
+    layouts = _tp_layouts(state)
+    return {k: full_tensor(v, _layout_of(k, layouts))
+            for k, v in train_state_dict(state).items()}
+
+
 def load_train_state(state: TrainState, flat: Mapping[str, torch.Tensor],
                      meta: Mapping) -> None:
     """Restore ``state`` in place from a training slot written from
-    ``train_state_dict`` (and its meta)."""
+    ``train_state_dict`` (and its meta). The slot's tensors are whole; each
+    goes in as this rank's share where the state is split (tp, FSDP)."""
+    layouts = _tp_layouts(state)
+
+    def share(key, live):
+        return local_share(flat[key], live, _layout_of(key, layouts))
+
     for prefix, module, opt in _networks(state):
-        module.load_state_dict({k: flat[prefix + k]
-                                for k in module.state_dict()})
+        reshard(module)
+        module.load_state_dict({k: share(prefix + k, v)
+                                for k, v in module.state_dict().items()})
         opt_sd = opt.state_dict()
-        for index, (name, _) in enumerate(module.named_parameters()):
+        for index, (name, param) in enumerate(module.named_parameters()):
             head = f"{OPT_PREFIX}{prefix}{name}."
-            entry = {k[len(head):]: v for k, v in flat.items()
-                     if k.startswith(head)}
+            entry = {k[len(head):]: v if k.endswith(".step")
+                     else share(k, param)
+                     for k, v in flat.items() if k.startswith(head)}
             if entry:
                 opt_sd["state"][index] = entry
         opt.load_state_dict(opt_sd)
     if state.ema is not None:
         with torch.no_grad():
             for k, v in state.ema.params.items():
-                v.copy_(flat[EMA_PREFIX + k])
+                v.copy_(share(EMA_PREFIX + k, v))
         state.ema.num_updates = int(meta.get("ema_num_updates", 0))
     state.step = int(meta["step"])
 
@@ -117,11 +177,6 @@ class Trainer:
 
     def __init__(self, hparams: Mapping, image_size: Optional[int] = None):
         h = dict(TRAIN_DEFAULTS, **hparams)
-        if int(h.get("tp") or 1) != 1 or int(h.get("sp") or 1) != 1 \
-                or h.get("fsdp"):
-            raise NotImplementedError(
-                "--tp, --sp and --fsdp are not ported to pai_tpu_torch yet: "
-                "ROADMAP.md Queue A item 7 (multi-device layer)")
         scan_k = int(h.get("scan_steps") or 1)
         if scan_k < 1 or LOG_EVERY % scan_k:
             raise ValueError("--scan-steps must divide the 10-step log "
@@ -132,7 +187,7 @@ class Trainer:
         h["image_size"] = self.image_size
         self.hparams = h
         self.name = h["name"]
-        self.device = resolve_device(h.get("device") or "cuda")
+        self._init_mesh(h)
         self.seed = int(h.get("seed") or 0)
         self.is_palette = h["model"] == "palette"
         self.learn_var = bool(h.get("learn_variance", False))
@@ -158,19 +213,64 @@ class Trainer:
                     dtype=compute_dtype(h["precision"]),
                     generator=self.generator, device=self.device)
             self.eval_step = steps_lib.make_gan_eval_step(self.model)
-        self.logger = CSVLogger(h.get("log_dir") or "logs", self.name)
-        self.logger.log_hparams(sanitize_hparams(h))
+        # rank zero's IO: the other ranks keep no logger
+        self.logger = CSVLogger(h.get("log_dir") or "logs", self.name) \
+            if self.is_main else None
+        if self.is_main:
+            self.logger.log_hparams(sanitize_hparams(h))
         self.ckpt = CheckpointManager(h.get("ckpt_dir") or "checkpoints",
-                                      self.name)
+                                      self.name, writer=self.is_main)
         self.val_loader: Optional[BatchLoader] = None
+
+    def _init_mesh(self, h: Mapping) -> None:
+        """The process group, this rank's device and the mesh, with the JAX
+        package's errors (``pai_tpu/train/loop.py:142-159``)."""
+        device = resolve_device(h.get("device") or "cuda")
+        launched = "WORLD_SIZE" in os.environ or dist.is_initialized()
+        if device.type == "cuda" and device.index is None and launched:
+            # one card per rank where the host has them (ranks beyond the
+            # card count share: the gloo backend carries that)
+            local = launcher_world()[2]
+            device = torch.device("cuda", local % torch.cuda.device_count())
+        if device.type == "cuda" and launched:
+            torch.cuda.set_device(device)
+        self.rank, self.world = maybe_initialize_distributed(device)
+        self.device = device
+        self.is_main = self.rank == 0
+        self.tp = int(h.get("tp") or 1)
+        self.sp = int(h.get("sp") or 1)
+        self.fsdp = bool(h.get("fsdp"))
+        if self.world % (self.tp * self.sp):
+            raise ValueError(
+                f"--tp {self.tp} x --sp {self.sp} does not divide "
+                f"{self.world} devices")
+        dp = math.gcd(int(h["batch_size"]), self.world // (self.tp * self.sp))
+        if self.world > 1 and dp * self.tp * self.sp != self.world:
+            raise ValueError(
+                f"multi-process run: batch_size {h['batch_size']} x tp "
+                f"{self.tp} x sp {self.sp} yields dp={dp}, which does not "
+                f"span all {self.world} devices; choose a batch size "
+                f"divisible by {self.world // (self.tp * self.sp)}")
+        self.mesh = make_mesh(self.world, self.tp, self.sp, device.type) \
+            if dist.is_initialized() else None
+        self.dp = axis_size(self.mesh, "dp")
+        self.dp_rank = axis_rank(self.mesh, "dp")
+
+    def _gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every dp rank's rows of ``x``, in rank order (collective)."""
+        if self.dp == 1:
+            return x
+        return all_gather_cat(x, axis_group(self.mesh, "dp"))
 
     # ------------------------------------------------------------------
     def _slot(self, state: TrainState) -> tuple:
         """What a checkpoint slot holds besides the hparams: the flat train
-        state and the EMA's update count (its decay ramp)."""
-        return (train_state_dict(state),
-                {"ema_num_updates": state.ema.num_updates
-                 if state.ema is not None else 0})
+        state (whole tensors: collective on a mesh) and the EMA's update
+        count (its decay ramp)."""
+        flat = train_state_dict(state) if self.mesh is None \
+            else full_train_state_dict(state)
+        return (flat, {"ema_num_updates": state.ema.num_updates
+                       if state.ema is not None else 0})
 
     def validate(self, state: TrainState, epoch: int) -> Dict[str, float]:
         """Evaluate every validation batch (Palette: sample it and write its
@@ -178,8 +278,9 @@ class Trainer:
         docstring)."""
         if self.is_palette:
             params = steps_lib.palette_eval_params(state)
-            epoch_dir = os.path.join(self.logger.log_dir, str(epoch + 1))
-            os.makedirs(epoch_dir, exist_ok=True)
+            if self.is_main:
+                epoch_dir = os.path.join(self.logger.log_dir, str(epoch + 1))
+                os.makedirs(epoch_dir, exist_ok=True)
             generator = torch.Generator(device=self.device).manual_seed(
                 self.seed + 7919 + epoch)
         else:
@@ -191,13 +292,17 @@ class Trainer:
             if self.is_palette:
                 y_pred, per_image = self.sample_step(params, batch.x,
                                                      batch.y, generator)
-                frames = to_int(denormalize(y_pred[:n])).cpu().numpy()
-                for frame in frames:
-                    write_png(frame, os.path.join(
-                        epoch_dir, f"output_{out_index}.png"))
-                    out_index += 1
+                y_pred = self._gather_rows(y_pred)
+                if self.is_main:
+                    frames = to_int(denormalize(y_pred[:n])).cpu().numpy()
+                    for frame in frames:
+                        write_png(frame, os.path.join(
+                            epoch_dir, f"output_{out_index}.png"))
+                        out_index += 1
             else:
                 _, per_image = self.eval_step(params, batch.x, batch.y)
+            per_image = {k: self._gather_rows(v)
+                         for k, v in per_image.items()}
             ssim_sum += float(per_image["ssim"][:n].sum())
             batch_mse = float(per_image["mse"][:n].mean())
             psnr_wsum += n * 10.0 * math.log10(1.0 / max(batch_mse, 1e-20))
@@ -209,9 +314,14 @@ class Trainer:
                 "val_rmse": rmse_wsum / total}
 
     def _steps(self, n_train: int):
-        """``(state, train_step, lean_step)``: a fresh train state and the
-        step of the logged steps and of the others."""
+        """``(state, train_step, lean_step)``: a fresh train state (its
+        networks placed on the mesh first, so that the optimizers hold the
+        placed parameters) and the step of the logged steps and of the
+        others."""
         h = self.hparams
+        if self.mesh is not None:
+            shard_state([self.model, self.discriminator], self.mesh, self.tp,
+                        self.fsdp)
         if self.is_palette:
             spe = math.ceil(n_train / int(h["batch_size"])) \
                 if h.get("warmup_unit", "epoch") == "epoch" else None
@@ -231,18 +341,28 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def fit(self) -> Dict[str, float]:
+        set_mesh_context(self.mesh, "sp" if self.sp > 1 else None)
+        try:
+            return self._fit()
+        finally:
+            # later work in this thread (the API's predict, a report) must
+            # not dispatch through a stale mesh
+            set_mesh_context(None)
+
+    def _fit(self) -> Dict[str, float]:
         h = self.hparams
         bs = int(h["batch_size"])
         train_dataset = ImageDataset(h["data"], self.image_size)
         state, train_step, lean_step = self._steps(len(train_dataset))
         val_dataset = ImageDataset(h["val_data"], self.image_size) \
             if h.get("val_data") else None
+        rows = dict(process_index=self.dp_rank, process_count=self.dp,
+                    device=self.device)
         self.val_loader = BatchLoader(val_dataset, bs, shuffle=False,
-                                      pad_mode="zero", device=self.device) \
+                                      pad_mode="zero", **rows) \
             if val_dataset else None
         loader = BatchLoader(train_dataset, bs, shuffle=True,
-                             pad_mode="cycle", seed=self.seed,
-                             device=self.device)
+                             pad_mode="cycle", seed=self.seed, **rows)
 
         start_epoch = 0
         if h.get("resume"):
@@ -253,11 +373,13 @@ class Trainer:
             else:
                 load_train_state(state, flat, meta)
                 start_epoch = meta["epoch"] + 1
-                print(f"[pai_tpu_torch] resumed from epoch {meta['epoch']} "
-                      f"(step {meta['step']})", flush=True)
+                if self.is_main:
+                    print(f"[pai_tpu_torch] resumed from epoch "
+                          f"{meta['epoch']} (step {meta['step']})",
+                          flush=True)
 
         profiler = None
-        if h.get("profile_dir"):
+        if h.get("profile_dir") and self.is_main:
             profiler = torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CPU]
                 + ([torch.profiler.ProfilerActivity.CUDA]
@@ -280,13 +402,14 @@ class Trainer:
                     images_seen += batch.n_valid
                     if state.step % LOG_EVERY == 0:
                         vals = {k: float(v) for k, v in step_metrics.items()}
-                        self.logger.log_metrics(vals, state.step, epoch)
-                        rate = images_seen / max(time.time() - t0, 1e-9)
-                        print(f"[pai_tpu_torch] epoch {epoch + 1} step "
-                              f"{state.step} " + " ".join(
-                                  f"{k}={v:.4f}" for k, v in vals.items())
-                              + f" | {rate:.1f} img/s", file=sys.stderr,
-                              flush=True)
+                        if self.is_main:
+                            self.logger.log_metrics(vals, state.step, epoch)
+                            rate = images_seen / max(time.time() - t0, 1e-9)
+                            print(f"[pai_tpu_torch] epoch {epoch + 1} step "
+                                  f"{state.step} " + " ".join(
+                                      f"{k}={v:.4f}" for k, v in vals.items())
+                                  + f" | {rate:.1f} img/s", file=sys.stderr,
+                                  flush=True)
                         if not np.isfinite(vals["loss"]):
                             flat, extra = self._slot(state)
                             self.ckpt.save_diverged(flat, h, state.step,
@@ -306,12 +429,16 @@ class Trainer:
                 if (epoch + 1) % int(h["val_epochs"]) == 0 \
                         and self.val_loader is not None:
                     last_val = self.validate(state, epoch)
-                    if last_val:
+                    if last_val and self.is_main:
                         self.logger.log_metrics(last_val, state.step, epoch)
                         print(f"[pai_tpu_torch] epoch {epoch + 1} step "
                               f"{state.step}: " + " ".join(
                                   f"{k}={v:.4f}" for k, v in last_val.items()),
                               flush=True)
+                    if last_val:
+                        # collective: every rank gathers, rank zero writes;
+                        # the metrics are the same on every rank, and so is
+                        # the best-slot decision
                         flat, extra = self._slot(state)
                         ssim = last_val["val_ssim"]
                         self.ckpt.maybe_save_best(flat, h, state.step, epoch,
@@ -327,6 +454,8 @@ class Trainer:
         flat, extra = self._slot(state)
         self.ckpt.save_last(flat, h, state.step, epoch,
                             last_val.get("val_ssim"), **extra)
+        if self.world > 1:
+            dist.barrier()  # the slots are whole before any rank reads them
         wall = time.time() - t0
         return {"steps": state.step,
                 "images_per_sec": images_seen / wall if wall > 0 else 0.0,

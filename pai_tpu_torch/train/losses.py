@@ -8,7 +8,8 @@
 * ``mse``:   mean squared error on the raw [-1, 1] tensors;
 * discriminator: BCE(fake -> 0) + BCE(real -> 1).
 
-Every reduction is a mean in float32. At a kink the gradient is JAX's, as
+Every reduction is a mean in float32, over the global batch under a dp mesh
+(``parallel.mesh.dp_mean``). At a kink the gradient is JAX's, as
 the JAX package's losses take it at a tie: ``|d|`` has slope 1 at 0 (torch's
 ``abs`` has 0: an L1 term where a prediction equals its target, as a
 saturated tanh on a saturated pixel does), ``max(l, 0)`` slope 0.5, and the
@@ -26,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from pai_tpu_torch.parallel.mesh import dp_mean
 from pai_tpu_torch.utils import metrics
 
 LOSS_TYPES = ("gan", "ssim", "psnr", "ssim+psnr", "mse")
@@ -50,11 +52,11 @@ def bce_with_logits(logits: torch.Tensor, targets: float) -> torch.Tensor:
     logits = logits.float()
     loss = (torch.maximum(logits, torch.zeros_like(logits))
             - logits * targets + torch.log1p(torch.exp(-_abs(logits))))
-    return loss.mean()
+    return dp_mean(loss.mean())
 
 
 def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    return torch.mean(_abs(pred.float() - target.float()))
+    return dp_mean(torch.mean(_abs(pred.float() - target.float())))
 
 
 def generator_loss(loss_type: str, pred: torch.Tensor, target: torch.Tensor,

@@ -38,8 +38,8 @@ takes ``{"t", "noise", "u"}`` instead, so that tests can feed both packages
 the same draws.
 
 The GAN evaluation step and the Palette sample step run under
-``torch.inference_mode()`` with the evaluation weights swapped in by
-``torch.func.functional_call`` and score their output with the per-image
+``torch.inference_mode()`` (``torch.no_grad()`` for FSDP shares) with the
+evaluation weights swapped in by ``call_with_params`` and score their output with the per-image
 metrics (SSIM through the ``ssim_scalar`` kernel on the card); Palette's runs
 the 100-step DDPM chain (``diffusion.ddpm_sample``).
 """
@@ -54,6 +54,9 @@ from torch import nn
 from pai_tpu_torch.diffusion import (DiffusionSchedule, ddpm_sample, q_sample,
                                      vlb_term)
 from pai_tpu_torch.ops import Dropout, Dropout2d
+from pai_tpu_torch.parallel.distributed import all_reduce_mean_
+from pai_tpu_torch.parallel.mesh import dp_mean, dp_of_context, draw_rows
+from pai_tpu_torch.parallel.partitioning import is_sharded, reshard
 from pai_tpu_torch.train import losses
 from pai_tpu_torch.train.ema import init_ema, update_ema
 from pai_tpu_torch.train.state import (GanTrainState, PaletteTrainState,
@@ -134,6 +137,25 @@ def _second_stats_update(model: nn.Module, before: Dict[float, List]
         torch._foreach_add_(counters, 1)
 
 
+def sync_gradients(params) -> None:
+    """Under a mesh with a dp axis, every gradient becomes the mean of the dp
+    ranks' (XLA's psum of a dp-sharded batch's gradients): one all-reduce of
+    the flattened gradients of a chain before its optimizer step. Each
+    rank's gradient already holds what the global statistics and means gave
+    it (``parallel.distributed.all_reduce_sum``), so the mean is the global
+    batch's gradient. FSDP shares (DTensors) are left alone: FSDP2 averaged
+    them over dp in its reduce-scatter."""
+    from torch.distributed.tensor import DTensor
+
+    dp, _, group = dp_of_context()
+    if dp == 1:
+        return
+    grads = [p.grad for p in params
+             if p.grad is not None and not isinstance(p.grad, DTensor)]
+    if grads:
+        all_reduce_mean_(grads, group)
+
+
 def make_gan_train_step(generator: nn.Module,
                         discriminator: Optional[nn.Module], loss_type: str,
                         compute_metrics: bool = True,
@@ -176,6 +198,7 @@ def make_gan_train_step(generator: nn.Module,
             d_loss = losses.discriminator_loss(both[n:], both[:n])
             state.d_opt.zero_grad(set_to_none=True)
             d_loss.backward()
+            sync_gradients(disc.parameters())
             if with_grads:
                 out["d_grads"] = {k: p.grad.detach().clone()
                                   for k, p in disc.named_parameters()}
@@ -187,6 +210,7 @@ def make_gan_train_step(generator: nn.Module,
         params = list(model.parameters())
         state.g_opt.zero_grad(set_to_none=True)
         g_loss.backward(inputs=params)
+        sync_gradients(params)
         if with_grads:
             out["g_grads"] = {k: p.grad.detach().clone()
                               for k, p in model.named_parameters()}
@@ -207,6 +231,35 @@ def make_gan_train_step(generator: nn.Module,
     return train_step
 
 
+def _no_grad_for(model: nn.Module):
+    """``torch.inference_mode()``, or ``torch.no_grad()`` for a model whose
+    parameters are FSDP shares: FSDP2 gathers into buffers it reuses, which
+    must not become inference tensors."""
+    return torch.no_grad() if is_sharded(model) else torch.inference_mode()
+
+
+def call_with_params(model: nn.Module, params: Mapping[str, torch.Tensor],
+                     args: tuple):
+    """``model(*args)`` with ``params`` (name -> tensor) in place of its own:
+    ``torch.func.functional_call``; for FSDP shares, whose forward gathers
+    the module's own parameters, the values are copied into them for the
+    call and back after it (no gradient is taken)."""
+    if not is_sharded(model):
+        return torch.func.functional_call(model, dict(params), args)
+    reshard(model)
+    live = dict(model.named_parameters())
+    swap = [k for k in params if params[k] is not live[k]]
+    with torch.no_grad():
+        kept = [live[k].detach().clone() for k in swap]
+        for k in swap:
+            live[k].copy_(params[k])
+        out = model(*args)
+        reshard(model)
+        for k, value in zip(swap, kept):
+            live[k].copy_(value)
+    return out
+
+
 def make_gan_eval_step(generator: nn.Module) -> Callable:
     """``eval_step(params, x, y) -> (pred, per_image)``: the eval-mode
     forward with ``params`` (name -> tensor) swapped into ``generator``, and
@@ -216,8 +269,8 @@ def make_gan_eval_step(generator: nn.Module) -> Callable:
     def eval_step(params: Mapping[str, torch.Tensor], x: torch.Tensor,
                   y: torch.Tensor):
         generator.eval()
-        with torch.inference_mode():
-            pred = torch.func.functional_call(generator, dict(params), (x,))
+        with _no_grad_for(generator):
+            pred = call_with_params(generator, params, (x,))
             dp, dt = denormalize(pred), denormalize(y)
             per_image = {"ssim": metrics.ssim_per_image(dp, dt),
                          "psnr": metrics.psnr_per_image(dp, dt),
@@ -261,20 +314,22 @@ def make_palette_train_step(unet: nn.Module, sched: DiffusionSchedule,
                 u=torch.as_tensor(rand["u"], device=y_0.device))
         else:
             generator.manual_seed(step_seed(seed, state.step))
-            t = torch.randint(0, sched.timesteps, (n,), generator=generator,
-                              device=y_0.device)
+            t = draw_rows(lambda shape: torch.randint(
+                0, sched.timesteps, shape, generator=generator,
+                device=y_0.device), (n,))
             y_t, noise, gamma = q_sample(sched, y_0, t, generator)
 
         model_output = model(x, y_t, gamma)
         noise_pred = model_output[..., :c] if learn_var else model_output
-        mse_loss = torch.mean((noise_pred - noise) ** 2)
+        mse_loss = dp_mean(torch.mean((noise_pred - noise) ** 2))
         with torch.set_grad_enabled(learn_var):
-            vlb = torch.mean(vlb_term(sched, model_output, y_0, y_t, t,
-                                      learn_var))
+            vlb = dp_mean(torch.mean(vlb_term(sched, model_output, y_0, y_t,
+                                              t, learn_var)))
         loss = mse_loss + 0.001 * vlb if learn_var else mse_loss
 
         state.opt.zero_grad(set_to_none=True)
         loss.backward()
+        sync_gradients(model.parameters())
         lr = palette_lr(state.step, warmup_steps_per_epoch)
         for group in state.opt.param_groups:
             group["lr"] = lr
@@ -309,10 +364,9 @@ def make_palette_sample_step(unet: nn.Module, sched_inf: DiffusionSchedule,
         unet.eval()
 
         def denoise_fn(cond, y_t, gamma):
-            return torch.func.functional_call(unet, dict(params),
-                                              (cond, y_t, gamma))
+            return call_with_params(unet, params, (cond, y_t, gamma))
 
-        with torch.inference_mode():
+        with _no_grad_for(unet):
             y_pred = ddpm_sample(sched_inf, denoise_fn, x, generator,
                                  learn_var)
             dp, dt = denormalize(y_pred), denormalize(y_0)

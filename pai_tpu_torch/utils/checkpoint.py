@@ -99,11 +99,19 @@ def load_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], Dict]:
 class CheckpointManager:
     """Best / last / diverged slots of one run under ``<root>/<name>/``. The
     state it saves is a flat ``state_dict`` (``train.loop.train_state_dict``)
-    with the meta fields beside it."""
+    with the meta fields beside it.
 
-    def __init__(self, root: str, name: str):
+    On a mesh every rank keeps a manager and calls its saves with the whole
+    state (the caller gathers it: ``train.loop.full_train_state_dict``), so
+    that every rank takes the same best-slot decisions; only the one made
+    with ``writer=True`` (rank zero) writes. Every rank reads a slot to
+    resume."""
+
+    def __init__(self, root: str, name: str, writer: bool = True):
         self.dir = os.path.abspath(os.path.join(root, name))
-        os.makedirs(self.dir, exist_ok=True)
+        self.writer = writer
+        if writer:
+            os.makedirs(self.dir, exist_ok=True)
         self.best_value: Optional[float] = None
         best = self._read_meta("best")
         if best:
@@ -122,7 +130,10 @@ class CheckpointManager:
     def save(self, which: str, flat: Mapping[str, torch.Tensor],
              hparams: Mapping, step: int, epoch: int,
              monitor_value: Optional[float] = None, **extra) -> str:
-        """Write slot ``which`` whatever it holds; returns its path."""
+        """Write slot ``which`` whatever it holds (the writer only); returns
+        its path."""
+        if not self.writer:
+            return self.slot(which)
         return _write_slot(self.slot(which), flat, _meta(
             hparams, step, epoch, monitor_value, **extra))
 

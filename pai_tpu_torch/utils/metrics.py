@@ -7,6 +7,11 @@ counterpart of ``pai_tpu/utils/metrics.py``.
 * PSNR: ``10 * log10(data_range^2 / mean_sq_err)`` over the whole tensor.
 * MSE / RMSE: plain mean squared error.
 
+The whole-batch reductions (``ssim``, ``psnr``, ``mse``, ``rmse``) are the
+global batch's when a mesh with a 'dp' axis is installed
+(``pai_tpu_torch.parallel.context``), as the JAX functions are on a
+dp-sharded array; the per-image ones are this rank's rows.
+
 Everything is NHWC on ``torch`` tensors and stays on the tensors' device. On a
 CUDA tensor the two SSIM functions launch the hand-written kernels of
 ``pai_tpu_torch.kernels.ssim`` (or raise); on a CPU tensor they take the plain
@@ -17,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from pai_tpu_torch.parallel.mesh import dp_mean
 from pai_tpu_torch.kernels.ssim import (
     ssim_bands_fused,
     ssim_parts_fused,
@@ -57,8 +63,9 @@ def ssim_per_image(pred, target, data_range: float = 1.0):
 
 def ssim(pred, target, data_range: float = 1.0):
     """Scalar SSIM, torchmetrics default elementwise-mean reduction (== mean
-    of per-image means at equal image sizes)."""
-    return ssim_per_image(pred, target, data_range).mean()
+    of per-image means at equal image sizes); the global batch's under a dp
+    mesh (``parallel.mesh.dp_mean``)."""
+    return dp_mean(ssim_per_image(pred, target, data_range).mean())
 
 
 def _sq_err(pred, target):
@@ -66,8 +73,9 @@ def _sq_err(pred, target):
 
 
 def psnr(pred, target, data_range: float = 1.0):
-    """Whole-tensor PSNR (torchmetrics default dim=None)."""
-    return 10.0 * torch.log10(data_range ** 2 / _sq_err(pred, target).mean())
+    """Whole-tensor PSNR (torchmetrics default dim=None), from the global
+    batch's MSE under a dp mesh."""
+    return 10.0 * torch.log10(data_range ** 2 / mse(pred, target))
 
 
 def psnr_per_image(pred, target, data_range: float = 1.0):
@@ -76,7 +84,8 @@ def psnr_per_image(pred, target, data_range: float = 1.0):
 
 
 def mse(pred, target):
-    return _sq_err(pred, target).mean()
+    """Whole-tensor MSE; the global batch's under a dp mesh."""
+    return dp_mean(_sq_err(pred, target).mean())
 
 
 def mse_per_image(pred, target):

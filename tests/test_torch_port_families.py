@@ -108,11 +108,12 @@ def test_forward_matches_jax(name, variables):
     assert float(np.abs(got_train.numpy() - want_train).max()) <= train_tol
     moved = state_dict_from_jax(name, params, updated["batch_stats"],
                                 mults_hparams(SMALL[name]))
+    before = state_dict_from_jax(name, params, stats,
+                                 mults_hparams(SMALL[name]))
     for key, buf in model.state_dict().items():
         if key.endswith(("running_mean", "running_var")):
             assert rel(buf, moved[key]) <= 1e-5, key
-            assert not torch.equal(buf, state_dict_from_jax(
-                name, params, stats, mults_hparams(SMALL[name]))[key]), key
+            assert not torch.equal(buf, before[key]), key
 
 
 @pytest.mark.parametrize("name", FAMILIES)

@@ -368,9 +368,10 @@ def test_pix2pix_fit_through_the_api(small_world, tmp_path):
         assert torch.equal(tensor, state[name]), name
     out = model.predict(np.zeros((1, SIZE, SIZE, 1), np.float32))
     assert out.shape == (1, SIZE, SIZE, 1)
-    # every family trains (tests/test_torch_port_families_train.py); the
-    # API still refuses the multi-device options (ROADMAP.md Queue A item 7)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # every family trains (tests/test_torch_port_families_train.py); on a
+    # world of one the API raises what pai_tpu raises for a mesh that does
+    # not divide its devices (tests/test_torch_port_parallel.py runs meshes)
+    with pytest.raises(ValueError, match="does not divide"):
         AttentionUnetGAN(device="cpu").fit("x", small_world["train"], tp=2)
 
 
@@ -409,9 +410,10 @@ def test_cli_flag_surface_matches_the_root_main(monkeypatch):
 
 @pytest.mark.parametrize("argv,error,match", [
     (["-m", "trans_unet"], ValueError, "incompatible with patch_size"),
-    (["-m", "palette", "--tp", "2"], NotImplementedError, "item 7"),
-    (["-m", "palette", "--sp", "2"], NotImplementedError, "item 7"),
-    (["-m", "palette", "--fsdp"], NotImplementedError, "item 7"),
+    (["-m", "palette", "--tp", "2"], ValueError, "does not divide"),
+    (["-m", "palette", "--sp", "2"], ValueError, "does not divide"),
+    (["-m", "palette", "--fsdp", "--sp", "4"], ValueError,
+     "does not divide"),
     (["-m", "palette", "--scan-steps", "3"], ValueError, "scan-steps")])
 def test_cli_raises_for_what_is_not_ported(argv, error, match, tmp_path):
     with pytest.raises(error, match=match):

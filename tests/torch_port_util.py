@@ -338,8 +338,13 @@ def rel(got, want):
 def slot_from_jax(jstate, loss_type, hp, family="pix2pix"):
     """The port's training slot (``train.loop.train_state_dict``'s names)
     of a JAX train state: both networks, both Adam chains, the EMA."""
+    import jax
+
     from pai_tpu_torch.interop import state_dict_from_jax
 
+    # one transfer of the whole state: leaf by leaf, each numpy conversion
+    # of a JAX array waits for it alone
+    jstate = jax.device_get(jstate)
     flat = dict(state_dict_from_jax(family, jstate.g_params,
                                     jstate.g_stats, hp))
     nets = [("", family, jstate.g_opt[0], jstate.ema.params["generator"])]
