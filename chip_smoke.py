@@ -9,7 +9,8 @@ Palette sampling (the CLI-default diffusion UNet: the same mults at inner
 width 128, attention at downsample rates 8,4,2, 100-step DDPM chain),
 Palette training (float32, and a bf16-mixed step), GAN training (Pix2Pix
 with the PatchGAN, the train CLI's default), the other generator
-families' training and report (TransUNet through the CLIs) and a reference
+families' training and report (TransUNet through the CLIs; the attention
+U-Net and TransUNet also under ``--precision bf16-mixed``) and a reference
 Lightning ``.ckpt`` imported, reported, resumed and exported — through the
 entry points a user calls, and holds every hand-written kernel against its
 plain PyTorch version on the card. It imports ``pai_tpu_torch`` only (no
@@ -92,7 +93,21 @@ printing one JSON line:
    steps, a validation, best and last slots, ``--resume`` to a second
    epoch, and the report CLI on the best slot, with ``ssim_scalar`` counted
    on the training path and ``ssim_map`` on the report.
-10. ``interop`` — the native PNG codec: its batch decoder against the plain
+10. ``families_bf16`` — the same six families under ``--precision
+   bf16-mixed`` at their published widths, batch 8: the parameters float32
+   and a convolution's input bfloat16, an eval forward, three warm lean
+   ``gan`` steps timed and one profiled, peak memory, finite losses and
+   gradients; a small model of each family's bf16 forward card vs CPU,
+   with a float32 control that must fail; then ``pai_tpu_torch.main -m
+   attention_unet --loss-type ssim`` and ``-m trans_unet --channel-mults
+   1,2,2,4,4`` at ``--precision bf16-mixed`` (10 steps, a validation; the
+   TransUNet run's last slot gathered but not written) and the report CLI
+   on each best slot, ``ssim_scalar`` and ``ssim_map`` counted per run and
+   per step; and the live progress line: 20 Pix2Pix GAN steps through the
+   train CLI with ``sys.stderr`` a pseudo-terminal, where a profiler window
+   over the off-row steps must hold no host synchronisation and the line
+   must show the losses the steps returned.
+11. ``interop`` — the native PNG codec: its batch decoder against the plain
    version over the report's 32 pairs (byte-equal) and over RGB, palette
    and 16-bit files with every filter type at 256x256 (byte-equal) and
    300x200 (resized: the exact share and the largest difference, at most
@@ -110,7 +125,7 @@ printing one JSON line:
    ``global_step`` with its EMA update count carried on; ``export`` of the
    best slot bit-equal to the source's shadow and PatchGAN tensors.
 
-11. ``parallel`` — the multi-device layer on this one card. Ring attention
+12. ``parallel`` — the multi-device layer on this one card. Ring attention
    (``parallel.ring_attention.sequence_sharded_attention``) over 2 and 4
    ranks, spawned together on the card over gloo (``--rank-job``), at
    (2,4,16384,64) float32 and bfloat16 and (2,4,4096,128) float32, forward
@@ -2139,6 +2154,13 @@ def bf16_unet_readings(device):
                 model.compute_dtype = dtype
                 outs[where, dtype] = model(x.to(dev), y.to(dev),
                                            gamma.to(dev)).cpu().double()
+    return card_cpu_readings(outs, "small UNet")
+
+
+def card_cpu_readings(outs, what):
+    """``gap``, ``equal`` and ``corr`` (bf16_unet_readings) of the card's
+    bf16 output and of its float32 control, from ``outs[where, dtype]``
+    (float64 CPU copies of one eval forward each)."""
     ref16, ref32 = outs["cpu", torch.bfloat16], outs["cpu", torch.float32]
     theirs = ref16 - ref32
     readings = {"cpu_bf16_vs_float32": float(theirs.abs().max()),
@@ -2147,7 +2169,7 @@ def bf16_unet_readings(device):
                        (torch.float32, "card_float32_control")):
         got = outs["card", dtype]
         check(bool(torch.isfinite(got).all()),
-              f"small UNet {key}: non-finite output")
+              f"{what} {key}: non-finite output")
         mine = got - ref32
         readings[key] = {
             "gap": float((got - ref16).abs().max() / theirs.abs().max()),
@@ -2681,32 +2703,50 @@ TRANS_SLOT_BYTES = 3 * 4 * (FAMILY_PARAMETERS["trans_unet"]
                             + PATCHGAN_PARAMETERS)
 
 
-def family_steps(device, family, x, y):
+def family_steps(device, family, x, y, dtype=torch.float32):
     """One family at its published width: the parameter count, an eval
     forward, and ``FAMILY_TIMED_STEPS`` warm lean ``gan`` steps (CUDA-event
-    ms and host enqueue ms each; device busy time of one more, profiled)."""
+    ms and host enqueue ms each; device busy time of one more, profiled).
+    ``dtype`` bfloat16, under the bf16-mixed precision policy (the caller
+    sets it): both networks at that compute dtype, and besides the
+    parameters float32, a convolution's input bfloat16 (a forward hook on
+    the generator's second convolution) and every gradient finite."""
     import gc
 
     from pai_tpu_torch import kernels
     from pai_tpu_torch.models import Discriminator, build_generator
+    from pai_tpu_torch.ops import Conv
     from pai_tpu_torch.train import steps as steps_lib
     from pai_tpu_torch.utils.flops import parameter_count
 
+    bf16 = dtype == torch.bfloat16
     gen = torch.Generator(device=device).manual_seed(11)
     torch.cuda.reset_peak_memory_stats()
     model = build_generator(family, channel_mults=[
-        int(m) for m in FAMILY_MULTS[family].split(",")], generator=gen,
-        device=device)
+        int(m) for m in FAMILY_MULTS[family].split(",")], dtype=dtype,
+        generator=gen, device=device)
     n_params = parameter_count(model)
     check(n_params == FAMILY_PARAMETERS[family],
           f"{family}: {n_params} parameters, the reference has "
           f"{FAMILY_PARAMETERS[family]}")
+    conv = [m for m in model.modules() if isinstance(m, Conv)][1]
+    seen = []
+    hook = conv.register_forward_hook(
+        lambda m, args, out: seen.append((args[0].dtype, out.dtype)))
     with torch.inference_mode():
         out = model.eval()(x)
+    hook.remove()
     check(tuple(out.shape) == tuple(x.shape) and bool(out.isfinite().all())
           and float(out.abs().max()) <= 1.0,
           f"{family}: eval forward {tuple(out.shape)}")
-    disc = Discriminator(generator=gen, device=device)
+    disc = Discriminator(dtype=dtype, generator=gen, device=device)
+    parameter_dtypes = sorted({str(p.dtype) for net in (model, disc)
+                               for p in net.parameters()})
+    if bf16:
+        check(parameter_dtypes == ["torch.float32"] and
+              seen[0][0] == torch.bfloat16,
+              f"{family} at bf16-mixed: parameters {parameter_dtypes}, a "
+              f"convolution's input and output {seen[0]}")
     state = steps_lib.init_gan_state(model, disc, "gan", use_ema=False)
     lean = steps_lib.make_gan_train_step(model, disc, "gan",
                                          compute_metrics=False)
@@ -2730,6 +2770,11 @@ def family_steps(device, family, x, y):
           f"{family}: losses {losses}")
     check(not any(kernels.launch_counts.values()),
           f"{family}: a lean gan step launched {kernels.launch_counts}")
+    if bf16:
+        grads = [p.grad for net in (model, disc) for p in net.parameters()]
+        check(all(g is not None and bool(g.isfinite().all())
+                  for g in grads),
+              f"{family} at bf16-mixed: a gradient missing or not finite")
     conv = re.compile(r"conv|cudnn|sm90_|sm80_|xmma|implicit_gemm|wgrad|"
                       r"dgrad|fprop|fft|nhwc", re.I)
     conv_ms = sum(us for key, us in events.items() if conv.search(key)) / 1e3
@@ -2741,7 +2786,8 @@ def family_steps(device, family, x, y):
              "conv_share": conv_ms / busy_ms if busy_ms else None,
              "top_device_events_us": [[k[:80], us] for k, us in top],
              "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-             "losses": losses}
+             "losses": losses, "parameter_dtypes": parameter_dtypes,
+             "conv_input_output_dtypes": [str(d) for d in seen[0]]}
     del model, disc, state, lean, out
     gc.collect()
     torch.cuda.empty_cache()
@@ -2915,6 +2961,392 @@ def phase_families(device, workdir):
               "report_mean_ssim": float(ssim.mean()),
               "report_stats": stats}})
     return train_launches, report_launches
+
+
+# bf16-mixed for the six families (phase_families_bf16). Card vs CPU: a
+# small model of each family (small_generator, every tensor drawn from a
+# seed) in eval mode at 32x32, bf16 and float32 on both; the card's bf16
+# output against the CPU's must reach BF16_FAMILY_EQUAL and BF16_FAMILY_CORR
+# (card_cpu_readings) and its float32 control must not reach both. The
+# share bit-equal is lower than the UNet's (BF16_CARD_EQUAL): a family's
+# output is the float32 tanh of a float32 sum, whose last bit the two
+# libraries round differently, and the residual U-Nets' full-resolution
+# 3x3 stacks spread a value that float32 order moved across a rounding
+# point (tools/bf16_family_agreement.py reads 0.05-0.47 bit-equal against
+# pai_tpu on the CPU).
+BF16_FAMILY_EQUAL = 0.02
+BF16_FAMILY_CORR = 0.5
+# the live progress line: 20 GAN steps of Pix2Pix, the window of off-row
+# steps read by the profiler (after the log row at step 10, before the one
+# at step 20), and the runtime calls that make the host wait for the device
+LIVE_STEPS = 20
+LIVE_WINDOW = (11, 19)
+HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy")
+LIVE_DRAW = re.compile(r"\[pai_tpu_torch\] epoch (\d+) step (\d+)(.*?)\x1b\[K")
+
+
+def family_bf16_card_vs_cpu(device, family):
+    """A small ``family`` model's eval forward on the card against the CPU
+    at bf16 and float32 (card_cpu_readings)."""
+    import copy
+
+    cpu_model, _ = gan_small_models(3, family)
+    card_model = copy.deepcopy(cpu_model).to(device).to(
+        memory_format=torch.channels_last)
+    x = torch.from_numpy(np.random.default_rng(13).uniform(
+        -1, 1, (2, 32, 32, 1)).astype(np.float32))
+    outs = {}
+    with torch.inference_mode():
+        for dtype in (torch.bfloat16, torch.float32):
+            for where, model in (("cpu", cpu_model), ("card", card_model)):
+                model.eval().compute_dtype = dtype
+                outs[where, dtype] = model(x.to(
+                    next(model.parameters()).device)).cpu().double()
+    readings = card_cpu_readings(outs, f"small {family}")
+
+    def passes(r):
+        return (r["equal"] >= BF16_FAMILY_EQUAL
+                and r["corr"] >= BF16_FAMILY_CORR)
+
+    check(passes(readings["card_bf16"])
+          and not passes(readings["card_float32_control"]),
+          f"small {family} at bf16, card vs CPU: {readings} (limits equal "
+          f">= {BF16_FAMILY_EQUAL}, corr >= {BF16_FAMILY_CORR}; the float32 "
+          f"control must fail them)")
+    return readings
+
+
+def live_line(workdir, train):
+    """``python -m pai_tpu_torch.main live -m pix2pix --precision
+    bf16-mixed`` for LIVE_STEPS GAN steps at the published width with
+    ``sys.stderr`` a pseudo-terminal (the live line redrawn and its loss
+    fetched at every step: both intervals set to 0 here). A profiler window
+    over the off-row steps LIVE_WINDOW must hold none of HOST_WAITS from the
+    CUDA runtime (the profiler's own synchronisation at its stop lies after
+    the window); every loss the line shows is one a step returned, and an
+    off-row line shows the step before it (the device is idle behind a
+    bf16-mixed Pix2Pix step, so the copy has landed)."""
+    import pty
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from pai_tpu_torch import main as train_main
+    from pai_tpu_torch.train import loop
+    from pai_tpu_torch.train import steps as steps_lib
+
+    master, follower = pty.openpty()
+    received = []
+
+    def drain():
+        while True:
+            try:
+                data = os.read(master, 1 << 16)
+            except OSError:  # the follower side is closed
+                return
+            if not data:
+                return
+            received.append(data)
+
+    reader = threading.Thread(target=drain, daemon=True)
+    reader.start()
+    terminal = os.fdopen(follower, "w")
+    losses, window = {}, {}
+    real_make = steps_lib.make_gan_train_step
+
+    def instrumented(*args, **kwargs):
+        step = real_make(*args, **kwargs)
+
+        def run(state, x, y):
+            n = state.step + 1
+            if n == LIVE_WINDOW[0]:
+                window["profile"] = profile(activities=[
+                    ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                window["profile"].start()
+                window["range"] = record_function("live_window")
+                window["range"].__enter__()
+            elif n == LIVE_WINDOW[1] + 1 and "range" in window:
+                window.pop("range").__exit__(None, None, None)
+                window["profile"].stop()
+            state, metrics = step(state, x, y)
+            losses[n] = metrics["loss"]  # read after the run
+            return state, metrics
+        return run
+
+    logs = os.path.join(workdir, "live_logs")
+    argv = ["live", "-d", train, "-m", "pix2pix", "--loss-type", "gan",
+            "--batch-size", str(GAN_BATCH), "--precision", "bf16-mixed",
+            "--steps", str(LIVE_STEPS), "--epochs", "3", "--device", "cuda",
+            "--log-dir", logs, "--ckpt-dir",
+            os.path.join(workdir, "live_ckpt")]
+    real_stderr = sys.stderr
+    intervals = (loop._Progress._MIN_INTERVAL,
+                 loop._Progress._FETCH_INTERVAL)
+    steps_lib.make_gan_train_step = instrumented
+    loop._Progress._MIN_INTERVAL = loop._Progress._FETCH_INTERVAL = 0.0
+    sys.stderr = terminal
+    try:
+        check(sys.stderr.isatty(), "the pseudo-terminal is not a TTY")
+        start = time.perf_counter()
+        summary = train_main.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+    finally:
+        sys.stderr = real_stderr
+        steps_lib.make_gan_train_step = real_make
+        loop._Progress._MIN_INTERVAL, loop._Progress._FETCH_INTERVAL = \
+            intervals
+        terminal.close()
+        reader.join(timeout=10)
+        os.close(master)
+    check(summary["steps"] == LIVE_STEPS and "range" not in window,
+          f"live line run: {summary['steps']} steps, window {window}")
+    losses = {n: float(v) for n, v in losses.items()}
+    text = b"".join(received).decode()
+
+    # the profiler window: the runtime's calls inside the marked range
+    with tempfile.TemporaryDirectory(prefix="pai_smoke_live_") as tmp:
+        path = os.path.join(tmp, "trace.json")
+        window["profile"].export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)["traceEvents"]
+    marks = [e for e in trace if e.get("name") == "live_window"
+             and e.get("cat") == "user_annotation"]
+    check(len(marks) == 1, f"{len(marks)} live_window ranges in the trace")
+    lo, hi = marks[0]["ts"], marks[0]["ts"] + marks[0]["dur"]
+    runtime = {}
+    for e in trace:
+        if e.get("cat") == "cuda_runtime" and lo <= e.get("ts", -1) <= hi:
+            runtime[e["name"]] = runtime.get(e["name"], 0) + 1
+    waits = {name: n for name, n in runtime.items() if name in HOST_WAITS}
+    check(runtime and not waits,
+          f"the host waited for the device on the off-row steps "
+          f"{LIVE_WINDOW}: {waits} (runtime calls {runtime})")
+
+    # the line: one draw per step, every loss shown one a step returned
+    draws = [(int(m.group(2)), dict(re.findall(r"(\w+)=(-?[\d.]+)",
+                                               m.group(3))))
+             for m in LIVE_DRAW.finditer(text)]
+    check([n for n, _ in draws] == list(range(1, LIVE_STEPS + 1)),
+          f"live line drawn at steps {[n for n, _ in draws]}")
+    previous = 0
+    for n, values in draws:
+        if "loss" not in values:
+            continue
+        shown = values["loss"]
+        # a log row shows its own loss, an off-row line an earlier one
+        last = n if n % 10 == 0 else n - 1
+        check(any(f"{losses[k]:.4f}" == shown for k in range(1, last + 1)),
+              f"the live line at step {n} shows loss={shown}, which no "
+              f"step before it returned")
+        if n % 10 not in (0, 1) and f"{losses[n - 1]:.4f}" == shown:
+            previous += 1  # a lean step's loss, through the copy
+    check(previous > 0, "no off-row line showed the loss of the lean step "
+          "before it")
+    row = [line for line in open(os.path.join(
+        logs, "live", "version_0", "metrics.csv")).read().splitlines()[1:]]
+    return {"seconds": seconds, "steps": LIVE_STEPS,
+            "window_steps": list(LIVE_WINDOW),
+            "window_runtime_calls": runtime, "host_waits_in_window": waits,
+            "draws": len(draws), "off_row_draws_showing_previous_loss":
+                previous, "log_rows": row,
+            "last_draws": [[n, v] for n, v in draws[-4:]]}
+
+
+def phase_families_bf16(device, workdir):
+    """The six families under ``--precision bf16-mixed``: at their
+    published widths (family_steps at bfloat16), a small model of each card
+    vs CPU (family_bf16_card_vs_cpu); then through the CLIs ``python -m
+    pai_tpu_torch.main smoke -m attention_unet --loss-type ssim`` (10
+    steps, a validation, best and last slots) and ``-m trans_unet
+    --channel-mults 1,2,2,4,4`` (``gan``; 10 steps, a validation, the best
+    slot: its last slot, 12.4 GB, gathered but not written), the report CLI
+    on each best slot, with ``ssim_scalar`` and ``ssim_map`` counted per
+    run; and the live progress line (live_line). Returns the launches of
+    the training and report runs."""
+    import gc
+
+    from pai_tpu_torch import kernels, report
+    from pai_tpu_torch import main as train_main
+    from pai_tpu_torch.config import apply_precision_policy
+    from pai_tpu_torch.data import BatchLoader, ImageDataset
+    from pai_tpu_torch.train import loop
+    from pai_tpu_torch.train import steps as steps_lib
+    from pai_tpu_torch.utils import checkpoint as ckpt_lib
+
+    free = shutil.disk_usage(workdir).free
+    need = TRANS_SLOT_BYTES + 4 * 10 ** 9
+    check(free >= need, f"{free / 1e9:.1f} GB free under {workdir}: the "
+          f"bf16 families phase writes a TransUNet slot of "
+          f"~{TRANS_SLOT_BYTES / 1e9:.1f} GB and the attention U-Net's, "
+          f"{need / 1e9:.1f} GB in all")
+    train = write_pairs(os.path.join(workdir, "train"), GAN_TRAIN_IMAGES, 7)
+    val = write_pairs(os.path.join(workdir, "val"), GAN_VAL_IMAGES, 8)
+    n_steps = GAN_TRAIN_IMAGES // GAN_BATCH
+    n_val = GAN_VAL_IMAGES // GAN_BATCH
+    seconds = {}
+    try:
+        apply_precision_policy("bf16-mixed")
+        loader = BatchLoader(ImageDataset(train, SIZE), GAN_BATCH,
+                             shuffle=True, pad_mode="cycle", device="cuda")
+        batch = next(iter(loader))
+        start = time.perf_counter()
+        families = {family: family_steps(device, family, batch.x, batch.y,
+                                         torch.bfloat16)
+                    for family in FAMILY_PARAMETERS}
+        seconds["published_widths"] = time.perf_counter() - start
+        start = time.perf_counter()
+        card_cpu = {family: family_bf16_card_vs_cpu(device, family)
+                    for family in FAMILY_PARAMETERS}
+        seconds["card_vs_cpu"] = time.perf_counter() - start
+
+        # ---- through the CLIs, counted run by run ----------------------
+        runs = {}
+        saves, steps = [], []
+        real_write = ckpt_lib._write_slot
+        real_make = steps_lib.make_gan_train_step
+        skip_last = {"on": False}
+
+        def timed_write(slot_dir, flat, meta):
+            torch.cuda.synchronize()
+            if skip_last["on"] and os.path.basename(slot_dir) == "last":
+                saves.append({"slot": "last", "written": False})
+                return slot_dir
+            begin = time.perf_counter()
+            out = real_write(slot_dir, flat, meta)
+            saves.append({"slot": os.path.basename(slot_dir),
+                          "written": True,
+                          "seconds": time.perf_counter() - begin,
+                          "bytes": os.path.getsize(os.path.join(
+                              slot_dir, "state.pt"))})
+            return out
+
+        def instrumented(*args, **kwargs):
+            step = real_make(*args, **kwargs)
+
+            def counted(state, x, y):
+                before = dict(kernels.launch_counts)
+                state, metrics = step(state, x, y)
+                steps.append({"log_row": "train_ssim" in metrics,
+                              "launches": {k: kernels.launch_counts[k]
+                                           - before[k] for k in before},
+                              "loss": metrics["loss"]})
+                return state, metrics
+            return counted
+
+        ckpt_lib._write_slot = timed_write
+        steps_lib.make_gan_train_step = instrumented
+        try:
+            for tag, family, loss_type, extra in (
+                    ("attention_unet_ssim", "attention_unet", "ssim", []),
+                    ("trans_unet_gan", "trans_unet", "gan",
+                     ["--channel-mults", FAMILY_MULTS["trans_unet"]])):
+                logs, ckpts = (os.path.join(workdir, f"{d}_{tag}")
+                               for d in ("logs", "ckpt"))
+                argv = ["smoke", "-d", train, "-vd", val, "-m", family,
+                        "--loss-type", loss_type, "--batch-size",
+                        str(GAN_BATCH), "--epochs", "1", "--val-epochs", "1",
+                        "--precision", "bf16-mixed", "--device", "cuda",
+                        "--log-dir", logs, "--ckpt-dir", ckpts, *extra]
+                skip_last["on"] = family == "trans_unet"
+                saves.clear()
+                steps.clear()
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                kernels.reset_launch_counts()
+                start = time.perf_counter()
+                summary = train_main.main(argv)
+                torch.cuda.synchronize()
+                fit_seconds = time.perf_counter() - start
+                train_launches = dict(kernels.launch_counts)
+                peak = torch.cuda.max_memory_allocated()
+                # ---- end of the counted training run -------------------
+                ssim_loss = loss_type == "ssim"
+                for i, entry in enumerate(steps):
+                    want = int(ssim_loss) + int(entry["log_row"])
+                    check(entry["launches"]["ssim_scalar"] == want
+                          and entry["launches"]["ssim_map"] == 0,
+                          f"{tag} step {i + 1} launched "
+                          f"{entry['launches']}, expected {want} "
+                          f"ssim_scalar")
+                    check(np.isfinite(float(entry["loss"])),
+                          f"{tag} step {i + 1}: loss not finite")
+                want = n_steps * int(ssim_loss) + 1 + n_val
+                check(summary["steps"] == n_steps and len(steps) == n_steps
+                      and [e["log_row"] for e in steps]
+                      == [False] * (n_steps - 1) + [True],
+                      f"{tag}: {summary['steps']} steps, log rows "
+                      f"{[e['log_row'] for e in steps]}")
+                check(train_launches["ssim_scalar"] == want
+                      and train_launches["ssim_map"] == 0,
+                      f"{tag} launched {train_launches} on its training "
+                      f"path, expected {want} ssim_scalar (one per step "
+                      f"for an SSIM loss, 1 for train_ssim, {n_val} for "
+                      f"the validation)")
+                check(all(np.isfinite(summary[k]) for k in (
+                    "val_ssim", "val_psnr", "val_rmse")),
+                      f"{tag} validation metrics: {summary}")
+                slots = sorted(os.listdir(os.path.join(ckpts, "smoke")))
+                written = [e["slot"] for e in saves if e["written"]]
+                check(slots == (["best"] if family == "trans_unet"
+                                else ["best", "last"])
+                      and written[0] == "best",
+                      f"{tag}: slots {slots}, saves {saves}")
+                reports_dir = os.path.join(workdir, f"reports_{tag}")
+                kernels.reset_launch_counts()
+                start = time.perf_counter()
+                stats = report.main([tag, "-c", os.path.join(
+                    ckpts, "smoke", "best"), "-d", val, "-m", family, "-bs",
+                    str(GAN_BATCH), "--device", "cuda", "--reports-dir",
+                    reports_dir])
+                torch.cuda.synchronize()
+                report_seconds = time.perf_counter() - start
+                report_launches = dict(kernels.launch_counts)
+                # ---- end of the counted report run ---------------------
+                check(report_launches["ssim_map"]
+                      == SSIM_MAP_LAUNCHES_PER_BATCH * n_val
+                      and report_launches["ssim_scalar"] == 0,
+                      f"the {tag} slot's report launched {report_launches}")
+                check(stats["params"] == FAMILY_PARAMETERS[family],
+                      f"{tag} report: {stats['params']} parameters")
+                ssim = read_csv_column(os.path.join(
+                    reports_dir, tag, "ssim_per_image.csv"), "image,ssim")
+                check(len(ssim) == GAN_VAL_IMAGES
+                      and np.isfinite(ssim).all(), f"{tag} report SSIM")
+                runs[tag] = {
+                    "fit_seconds": fit_seconds, "summary": summary,
+                    "train_launches": train_launches,
+                    "launches_per_step": [e["launches"] for e in steps],
+                    "losses": [float(e["loss"]) for e in steps],
+                    "checkpoint_saves": list(saves),
+                    "max_memory_allocated_bytes_fit": peak,
+                    "report_seconds": report_seconds,
+                    "report_launches": report_launches,
+                    "report_mean_ssim": float(ssim.mean())}
+                shutil.rmtree(ckpts)
+        finally:
+            ckpt_lib._write_slot = real_write
+            steps_lib.make_gan_train_step = real_make
+        gc.collect()
+        torch.cuda.empty_cache()
+        start = time.perf_counter()
+        live = live_line(workdir, train)
+        seconds["live_line"] = time.perf_counter() - start
+    finally:
+        apply_precision_policy("32")
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "families_bf16", "precision": "bf16-mixed",
+          "batch_size": GAN_BATCH, "image_size": SIZE, "families": families,
+          "card_vs_cpu": card_cpu,
+          "card_vs_cpu_limits": {"equal": BF16_FAMILY_EQUAL,
+                                 "corr": BF16_FAMILY_CORR},
+          "cli": runs, "live_line": live, "seconds": seconds})
+    return ({tag: r["train_launches"] for tag, r in runs.items()},
+            {tag: r["report_launches"] for tag, r in runs.items()})
 
 
 # the interop phase: a reference-layout Lightning .ckpt through the port
@@ -3871,7 +4303,8 @@ def read_csv_steps(path):
 def kernels_line(cases, report_batch, launches, flash_cases,
                  palette_launches, bwd_cases, train_launches, gan_launches,
                  family_launches, family_report_launches,
-                 interop_launches, parallel_launches):
+                 interop_launches, parallel_launches, bf16_family_launches,
+                 bf16_family_report_launches):
     described = {
         "ssim_map": ("pai_tpu_torch/kernels/csrc/ssim.cu",
                      "pai_tpu/kernels/ssim_pallas.py:137"),
@@ -3905,10 +4338,14 @@ def kernels_line(cases, report_batch, launches, flash_cases,
             out[-1]["launches_trans_unet_report_path"] = \
                 family_report_launches[name]
             out[-1]["launches_interop_report_path"] = interop_launches[name]
+            out[-1]["launches_bf16_family_report_paths"] = {
+                tag: c[name] for tag, c in bf16_family_report_launches.items()}
         else:  # validation batches and log rows of GAN training
             out[-1]["launches_gan_training_path"] = gan_launches[name]
             out[-1]["launches_trans_unet_training_path"] = \
                 family_launches[name]
+            out[-1]["launches_bf16_family_training_paths"] = {
+                tag: c[name] for tag, c in bf16_family_launches.items()}
     main = flash_cases[0]  # (2,4,16384,64): the longer of the Palette path's
     out.append({
         "name": "flash_fwd", "route": "cuda",
@@ -4026,6 +4463,10 @@ def main():
     with tempfile.TemporaryDirectory(prefix="pai_smoke_families_") as workdir:
         family_launches, family_report_launches = timed(
             "families", phase_families, device, workdir)
+    with tempfile.TemporaryDirectory(
+            prefix="pai_smoke_families_bf16_") as workdir:
+        bf16_family_launches, bf16_family_report_launches = timed(
+            "families_bf16", phase_families_bf16, device, workdir)
     with tempfile.TemporaryDirectory(prefix="pai_smoke_interop_") as workdir:
         interop_launches = timed("interop", phase_interop, device, workdir)
     with tempfile.TemporaryDirectory(prefix="pai_smoke_parallel_") as workdir:
@@ -4046,12 +4487,20 @@ def main():
           "kernel ssim_map was not launched on the TransUNet report path")
     check(interop_launches["ssim_map"] > 0,
           "kernel ssim_map was not launched on the interop report path")
+    for tag in bf16_family_launches:
+        check(bf16_family_launches[tag]["ssim_scalar"] > 0,
+              f"kernel ssim_scalar was not launched on the {tag} bf16-mixed "
+              "training path")
+        check(bf16_family_report_launches[tag]["ssim_map"] > 0,
+              f"kernel ssim_map was not launched on the {tag} bf16-mixed "
+              "report path")
 
     emit({"phase": "seconds", **seconds})
     emit(kernels_line(cases, report_batch, launches, flash_cases,
                       palette_launches, bwd_cases, train_launches,
                       gan_launches, family_launches, family_report_launches,
-                      interop_launches, parallel_launches))
+                      interop_launches, parallel_launches,
+                      bf16_family_launches, bf16_family_report_launches))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

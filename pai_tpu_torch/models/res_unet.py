@@ -29,6 +29,7 @@ from torch import nn
 from pai_tpu_torch.models.pix2pix import dropout_for_level
 from pai_tpu_torch.ops import (BatchNorm, Conv, Dropout2d, max_pool_2x,
                                upsample_nearest_2x)
+from pai_tpu_torch.ops.layers import round_to_compute
 
 
 def _conv_bn(in_channels, features, kernel_size, generator, device,
@@ -48,7 +49,8 @@ class _ResidualBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.conv_block(x)
-        h = h + (self.conv_skip(x) if self.conv_skip is not None else x)
+        h = h + (self.conv_skip(x) if self.conv_skip is not None
+                 else round_to_compute(x))
         return torch.relu(h) if self.post_relu else h
 
 
@@ -147,7 +149,10 @@ class ResUnet(nn.Module):
         self.channel_mults = mults
         self.compute_dtype = dtype
         n = len(mults)
-        self.in_conv = Conv(in_channels, 64, 3, padding=1, **args)
+        # "v2" opens with a BatchNorm, which reads the stem's float32 sum
+        # under bf16; the identity skip rounds it (_ResidualBlock)
+        self.in_conv = Conv(in_channels, 64, 3, padding=1,
+                            float32_sum=res_type == "v2", **args)
         widths = [64] + [m * 64 for m in mults]
         self.encoders = nn.ModuleList(
             nn.ModuleDict({"encode": nn.Sequential(

@@ -69,7 +69,9 @@ class BottleneckDown(nn.Module):
                  device=None):
         super().__init__()
         width = in_channels // 4
-        args = dict(bias=False, generator=generator, device=device)
+        # every convolution is read by a BatchNorm: the float32 product
+        args = dict(bias=False, generator=generator, device=device,
+                    float32_sum=True)
         self.decode = nn.Sequential(
             Conv(in_channels, width, 1, **args),
             BatchNorm(width, device=device), nn.ReLU(),
@@ -116,8 +118,7 @@ class SelfAttention(nn.Module):
             with torch.no_grad():
                 self.in_proj_weight.normal_(0.0, 0.02, generator=generator)
                 self.in_proj_bias.zero_()
-        self.out_proj = Dense(dim, dim, generator=generator, device=device,
-                              float32_sum=True)
+        self.out_proj = Dense(dim, dim, generator=generator, device=device)
         self.dropout = Dropout(dropout, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -141,7 +142,7 @@ class TransformerLayer(nn.Module):
         args = dict(generator=generator, device=device)
         self.self_attn = SelfAttention(dim, num_heads, dropout, **args)
         self.linear1 = Dense(dim, ffn_dim, **args)
-        self.linear2 = Dense(ffn_dim, dim, float32_sum=True, **args)
+        self.linear2 = Dense(ffn_dim, dim, **args)
         self.norm1 = LayerNorm(dim, device=device)
         self.norm2 = LayerNorm(dim, device=device)
         self.dropout = Dropout(dropout, generator=generator)
@@ -149,9 +150,12 @@ class TransformerLayer(nn.Module):
         self.dropout2 = Dropout(dropout, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.norm1(x + self.dropout1(self.self_attn(x)))
+        # under bf16 each branch ends rounded to bfloat16, and its residual
+        # sum is taken in float32 for the LayerNorm that reads it, as XLA
+        # compiles pai_tpu's layer (tests/test_torch_port_bf16.py)
+        x = self.norm1(x.float() + self.dropout1(self.self_attn(x)).float())
         h = self.dropout(gelu(self.linear1(x)))
-        return self.norm2(x + self.dropout2(self.linear2(h)))
+        return self.norm2(x.float() + self.dropout2(self.linear2(h)).float())
 
 
 class Patchify(nn.Module):

@@ -182,9 +182,19 @@ def _bias_after_rounding(op, x: torch.Tensor, weight: torch.Tensor,
     again, unless ``float32_sum``: where a reader casts the sum to float32
     (a BatchNorm, a model's float32 output), XLA drops that rounding for it,
     so the float32 sum is returned, and a bfloat16 reader rounds it
-    (``round_to_compute``). Otherwise one call with the bias inside."""
-    if not bf16_autocast(x) or bias is None:
+    (``round_to_compute``). Without a bias and with ``float32_sum``, that
+    reader gets the product itself unrounded: the float32 sum of the
+    bfloat16 operands' products, taken here in float32 (TF32 on the card,
+    which holds a bfloat16 value exactly). Otherwise one call with the bias
+    inside."""
+    if not bf16_autocast(x):
         return op(x, weight, bias)
+    if bias is None:
+        if not float32_sum:
+            return op(x, weight, None)
+        with torch.autocast(x.device.type, enabled=False):
+            return op(x.to(torch.bfloat16).float(),
+                      weight.to(torch.bfloat16).float(), None)
     y = op(x, weight, None)
     b = bias.to(y.dtype).view(bias_shape)
     return y.float() + b.float() if float32_sum else y + b

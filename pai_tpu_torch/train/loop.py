@@ -4,7 +4,8 @@ epoch loop, validation cadence, metric logging, best/last checkpoints.
 * epochs / max-steps limits, validation every ``val_epochs`` epochs, CSV
   metric rows every 10 steps (the only points where the loop waits for the
   device); the GAN families run the lean step (no train metrics) on the
-  other nine;
+  other nine; on a terminal a live line redrawn every step (``_Progress``),
+  elsewhere one line per log row;
 * validation: the GAN families run the evaluation step on each batch;
   Palette samples each batch with the 100-step chain and writes the outputs
   as PNGs under ``<log_dir>/<name>/version_<k>/<epoch + 1>/``. Both reduce
@@ -80,6 +81,93 @@ LOG_EVERY = 10
 PROFILE_STEPS = 12
 
 TrainState = Union[GanTrainState, PaletteTrainState]
+
+
+class _Progress:
+    """The live progress line, counterpart of ``pai_tpu/train/loop.py:50-104``.
+    Where ``sys.stderr`` is a TTY: an inline ``\\r`` line redrawn every step
+    (at most every ``_MIN_INTERVAL`` seconds) with the step and the last
+    metric values; the loss refreshes at most every ``_FETCH_INTERVAL``
+    seconds from the previous lean step's metrics, the other values at each
+    log row. Elsewhere: a plain line at each log row only.
+
+    The host never waits for the line: ``stage`` copies a lean step's
+    metrics into pinned host memory behind the step (``non_blocking``) and
+    records an event, and ``fetch`` reads them only once that event has
+    completed, else the values shown stay. A synchronous read of the
+    previous step's loss would queue behind the step just launched and
+    drain the queue. On the CPU the values are read as they are."""
+
+    _MIN_INTERVAL = 0.05   # seconds between inline redraws
+    _FETCH_INTERVAL = 0.5  # seconds between off-row loss fetches
+
+    def __init__(self):
+        self._open = False
+        self._tty = sys.stderr.isatty()
+        self._last_draw = 0.0
+        self._last_fetch = 0.0
+        self._staged = None   # (names, host values, event or None)
+        self._host = None     # pinned buffer of the staged values
+        self.values: Dict[str, float] = {}
+
+    @property
+    def live(self) -> bool:
+        """Whether the off-row steps are shown."""
+        return self._tty
+
+    def logged(self, values: Mapping[str, float]) -> None:
+        """A log row's values, fetched by the loop: they replace all."""
+        self.values = dict(values)
+        self._staged = None
+
+    def stage(self, metrics: Mapping[str, torch.Tensor]) -> None:
+        """Start the copy of a lean step's metrics to the host."""
+        names = tuple(metrics)
+        stacked = torch.stack([metrics[k].detach().float().reshape(())
+                               for k in names])
+        if stacked.device.type != "cuda":
+            self._staged = (names, stacked, None)
+            return
+        if self._host is None:  # a lean step's metrics keep their names
+            self._host = torch.empty(len(names), dtype=torch.float32,
+                                     pin_memory=True)
+        self._host.copy_(stacked, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        self._staged = (names, self._host, event)
+
+    def fetch(self) -> None:
+        """At most every ``_FETCH_INTERVAL``: the staged values, where the
+        copy has completed."""
+        now = time.time()
+        if self._staged is None or now - self._last_fetch < \
+                self._FETCH_INTERVAL:
+            return
+        names, host, event = self._staged
+        if event is not None and not event.query():
+            return
+        self._last_fetch = now
+        self.values.update(zip(names, host.tolist()))
+        self._staged = None
+
+    def update(self, msg: str, throttle: bool = False) -> None:
+        if self._tty:
+            now = time.time()
+            if throttle and now - self._last_draw < self._MIN_INTERVAL:
+                return
+            self._last_draw = now
+            # \x1b[K clears the tail of a longer previous line
+            print("\r[pai_tpu_torch] " + msg + "\x1b[K", end="",
+                  file=sys.stderr, flush=True)
+            self._open = True
+        elif not throttle:
+            print("[pai_tpu_torch] " + msg, file=sys.stderr, flush=True)
+
+    def close(self) -> None:
+        """End an open inline line before other output takes the terminal."""
+        if self._open:
+            print(file=sys.stderr, flush=True)
+            self._open = False
 
 
 def _networks(state: TrainState
@@ -387,6 +475,7 @@ class Trainer:
             profiler.start()
 
         max_steps = int(h["steps"])
+        progress = _Progress()
         last_val: Dict[str, float] = {}
         images_seen = 0
         done = False
@@ -401,15 +490,17 @@ class Trainer:
                     state, step_metrics = step(state, batch.x, batch.y)
                     images_seen += batch.n_valid
                     if state.step % LOG_EVERY == 0:
+                        # the loop's one wait for the device
                         vals = {k: float(v) for k, v in step_metrics.items()}
                         if self.is_main:
                             self.logger.log_metrics(vals, state.step, epoch)
                             rate = images_seen / max(time.time() - t0, 1e-9)
-                            print(f"[pai_tpu_torch] epoch {epoch + 1} step "
-                                  f"{state.step} " + " ".join(
-                                      f"{k}={v:.4f}" for k, v in vals.items())
-                                  + f" | {rate:.1f} img/s", file=sys.stderr,
-                                  flush=True)
+                            progress.logged(vals)
+                            progress.update(
+                                f"epoch {epoch + 1} step {state.step} "
+                                + " ".join(f"{k}={v:.4f}"
+                                           for k, v in vals.items())
+                                + f" | {rate:.1f} img/s")
                         if not np.isfinite(vals["loss"]):
                             flat, extra = self._slot(state)
                             self.ckpt.save_diverged(flat, h, state.step,
@@ -419,6 +510,16 @@ class Trainer:
                                 "(diverged state saved for postmortem; "
                                 "--resume recovers from the last "
                                 "checkpoint)")
+                    elif self.is_main and progress.live:
+                        # the previous step's values where they have
+                        # arrived, then this step's copy started
+                        progress.fetch()
+                        progress.stage(step_metrics)
+                        progress.update(
+                            f"epoch {epoch + 1} step {state.step} "
+                            + " ".join(f"{k}={v:.4f}"
+                                       for k, v in progress.values.items()),
+                            throttle=True)
                     if profiler is not None and state.step >= PROFILE_STEPS:
                         self._stop_profiler(profiler)
                         profiler = None
@@ -428,6 +529,7 @@ class Trainer:
 
                 if (epoch + 1) % int(h["val_epochs"]) == 0 \
                         and self.val_loader is not None:
+                    progress.close()
                     last_val = self.validate(state, epoch)
                     if last_val and self.is_main:
                         self.logger.log_metrics(last_val, state.step, epoch)
@@ -448,6 +550,7 @@ class Trainer:
                 if done:
                     break
         finally:
+            progress.close()
             if profiler is not None:
                 self._stop_profiler(profiler)
 

@@ -202,8 +202,8 @@ def test_attention_block_matches_jax_and_uses_the_legacy_qkv_split():
         jax.random.key(0), jnp.asarray(x), False))
     params = numpy_tree_like(abstract["params"], rng, "params")
     stats = numpy_tree_like(abstract["batch_stats"], rng, "stats")
-    want = np.asarray(module.apply({"params": params, "batch_stats": stats},
-                                   jnp.asarray(x), False))
+    want = np.asarray(jax.jit(lambda v, a: module.apply(v, a, False))(
+        {"params": params, "batch_stats": stats}, jnp.asarray(x)))
     block = tdu.AttentionBlock(16, num_heads=4).eval()
     assert tuple(block.qkv.weight.shape) == (48, 16, 1)
     assert not bool(block.proj_out.weight.any())  # zero-initialised

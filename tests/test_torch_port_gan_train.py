@@ -62,6 +62,7 @@ from pai_tpu_torch.models import Discriminator, build_generator
 from pai_tpu_torch.ops import layers as tl
 from pai_tpu_torch.train import losses as tlosses
 from pai_tpu_torch.train import steps as tsteps
+from torch_port_util import adam_initial_state
 from torch_port_util import discriminator_numpy_params, gan_batches
 from torch_port_util import jax_gan_state, pix2pix_numpy_variables
 from torch_port_util import port_gan_models
@@ -433,9 +434,10 @@ def test_first_ten_losses_match_the_reference_fixture(monkeypatch):
     g_params, g_stats = port_pix2pix(weights)
     d_params = port_discriminator(weights)
     jstate = JaxGanTrainState(
-        step=jnp.zeros((), jnp.int32), g_params=g_params, g_stats=g_stats,
-        g_opt=jax_gan_optimizer().init(g_params), d_params=d_params,
-        d_opt=jax_gan_optimizer().init(d_params), ema=None)
+        step=np.zeros((), np.int32), g_params=g_params, g_stats=g_stats,
+        g_opt=adam_initial_state(jax_gan_optimizer(), g_params),
+        d_params=d_params,
+        d_opt=adam_initial_state(jax_gan_optimizer(), d_params), ema=None)
     from pai_tpu.models import build_generator as jax_build_generator
 
     jstep = jax.jit(jsteps.make_gan_train_step(

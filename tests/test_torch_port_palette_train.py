@@ -47,7 +47,8 @@ from pai_tpu_torch.interop import state_dict_from_jax
 from pai_tpu_torch.train import ema as tema
 from pai_tpu_torch.train import steps as tsteps
 from pai_tpu_torch.train.state import palette_lr
-from torch_port_util import (palette_hparams, palette_numpy_variables,
+from torch_port_util import (adam_initial_state, ema_initial_state,
+                             palette_hparams, palette_numpy_variables,
                              port_palette_model)
 
 RTOL = 1e-6
@@ -280,7 +281,6 @@ def _degenerate(name, tensor):
 def test_three_train_steps_match_jax(learn_var, mults, size, attn, schedules,
                                      monkeypatch):
     from pai_tpu.train import steps as jsteps
-    from pai_tpu.train.ema import init_ema
     from pai_tpu.train.state import PaletteTrainState, palette_optimizer
     from pai_tpu.ops import attention as jax_attention
     from pai_tpu_torch.ops import attention as port_attention
@@ -305,9 +305,10 @@ def test_three_train_steps_match_jax(learn_var, mults, size, attn, schedules,
                                inner=INNER, num_heads=1)
     initial = {k: v.detach().clone() for k, v in model.named_parameters()}
     jstate = PaletteTrainState(
-        step=jnp.zeros((), jnp.int32), params=params, stats=stats,
-        opt=palette_optimizer(steps_per_epoch=STEPS_PER_EPOCH).init(params),
-        ema=init_ema({"unet": params}) if learn_var else None)
+        step=np.zeros((), np.int32), params=params, stats=stats,
+        opt=adam_initial_state(
+            palette_optimizer(steps_per_epoch=STEPS_PER_EPOCH), params),
+        ema=ema_initial_state({"unet": params}) if learn_var else None)
     jstep = jax.jit(jsteps.make_palette_train_step(
         module, jsched, learn_var, warmup_steps_per_epoch=STEPS_PER_EPOCH,
         external_rand=True))

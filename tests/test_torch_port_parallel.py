@@ -44,7 +44,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from pai_tpu_torch.interop import state_dict_from_jax
 from pai_tpu_torch.train.state import GAN_LR
-from torch_port_util import (deepest_leaky_inputs,
+from torch_port_util import (adam_initial_state, deepest_leaky_inputs,
                              discriminator_numpy_params, gan_batches,
                              jax_gan_state, mults_hparams,
                              palette_hparams, palette_numpy_variables,
@@ -180,8 +180,8 @@ def _jax_palette_step(inputs, eight_devices):
     mesh = make_mesh(eight_devices[:WORLD], tp=1, sp=2)
     params, stats = inputs["pparams"], inputs["pstats"]
     jstate = PaletteTrainState(
-        step=jnp.zeros((), jnp.int32), params=params, stats=stats,
-        opt=palette_optimizer().init(params), ema=None)
+        step=np.zeros((), np.int32), params=params, stats=stats,
+        opt=adam_initial_state(palette_optimizer(), params), ema=None)
     step = jax.jit(jsteps.make_palette_train_step(
         inputs["pal_module"], make_schedule("linear", 2000, 1e-6, 0.01),
         False, external_rand=True))

@@ -15,9 +15,12 @@ whose best slot the report CLI then serves (its 16 depth bands need more
 than 10 rows each)."""
 
 import argparse
+import contextlib
 import csv
+import io
 import json
 import os
+import re
 import runpy
 import sys
 
@@ -80,17 +83,29 @@ def _hparams(world, out, **overrides):
     return dict(base, **overrides)
 
 
+class _Terminal(io.StringIO):
+    """A text stream that says it is a terminal."""
+
+    def isatty(self):
+        return True
+
+
 @pytest.fixture(scope="module")
 def run(small_world, tmp_path_factory):
     """4 epochs of 3 steps (5 images, batches of 2, the last one cycled),
-    validation after epochs 2 and 4, EMA on."""
+    validation after epochs 2 and 4, EMA on; its standard output and error
+    kept (streams that are no terminal)."""
     out = tmp_path_factory.mktemp("run")
     h = _hparams(small_world, out)
     trainer = loop.Trainer(h)
-    summary = trainer.fit()
+    stdout, stderr = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(stdout), \
+            contextlib.redirect_stderr(stderr):
+        summary = trainer.fit()
     return {"out": out, "h": h, "trainer": trainer, "summary": summary,
             "ckpt": out / "ckpt" / "run", "log": out / "logs" / "run" /
-            "version_0"}
+            "version_0", "stdout": stdout.getvalue(),
+            "stderr": stderr.getvalue()}
 
 
 def test_slots_hold_the_whole_train_state(run):
@@ -250,10 +265,29 @@ def _gan_argv(world, out, *extra, validate=True):
 def gan_run(small_world, tmp_path_factory):
     """``python -m pai_tpu_torch.main gan -m pix2pix`` (the CLI's default
     ``--loss-type gan``) at 32x32 with the EMA: 12 steps, validations after
-    epochs 2 and 4."""
+    epochs 2 and 4; standard output and error both a terminal, the live
+    line redrawn and its loss fetched at every step, each step's loss
+    kept."""
     out = tmp_path_factory.mktemp("gan")
+    terminal, losses = _Terminal(), []
+    real_make = steps_lib.make_gan_train_step
+
+    def recorded(*args, **kwargs):
+        step = real_make(*args, **kwargs)
+
+        def run_step(state, x, y):
+            state, metrics = step(state, x, y)
+            losses.append(float(metrics["loss"]))
+            return state, metrics
+        return run_step
+
     patch = pytest.MonkeyPatch()
     patch.setattr(loop, "IMAGE_SIZE", SIZE)
+    patch.setattr(steps_lib, "make_gan_train_step", recorded)
+    patch.setattr(loop._Progress, "_MIN_INTERVAL", 0.0)
+    patch.setattr(loop._Progress, "_FETCH_INTERVAL", 0.0)
+    patch.setattr(sys, "stdout", terminal)
+    patch.setattr(sys, "stderr", terminal)
     try:
         summary = port_main.main(_gan_argv(
             small_world, out, "-e", str(GAN_EPOCHS), "--val-epochs", "2",
@@ -261,7 +295,8 @@ def gan_run(small_world, tmp_path_factory):
     finally:
         patch.undo()
     return {"summary": summary, "ckpt": out / "ckpt" / "gan",
-            "log": out / "logs" / "gan" / "version_0"}
+            "log": out / "logs" / "gan" / "version_0",
+            "terminal": terminal.getvalue(), "losses": losses}
 
 
 def test_gan_cli_logs_losses_and_train_metrics_at_log_rows(gan_run):
@@ -281,6 +316,66 @@ def test_gan_cli_logs_losses_and_train_metrics_at_log_rows(gan_run):
     assert float(rows[2]["val_ssim"]) == pytest.approx(
         gan_run["summary"]["val_ssim"])
     assert not any(name.isdigit() for name in os.listdir(gan_run["log"]))
+
+
+LIVE = re.compile(r"\[pai_tpu_torch\] epoch (\d+) step (\d+)(.*?)\x1b\[K")
+
+
+def test_the_live_line_shows_the_previous_steps_loss_on_a_terminal(gan_run):
+    """On a terminal every step redraws one inline line (``\\r``, no
+    newline): an off-row step shows the loss of the step before it, read
+    from the copy that step started (on the CPU: the value itself); the log
+    row at step 10 shows every metric; the line is ended before each
+    validation prints and at the end (pai_tpu/train/loop.py:50-104)."""
+    text, losses = gan_run["terminal"], gan_run["losses"]
+    assert len(losses) == 12
+    draws = [(int(m.group(1)), int(m.group(2)), m.group(3))
+             for m in LIVE.finditer(text)]
+    assert [step for _, step, _ in draws] == list(range(1, 13))
+    for epoch, step, shown in draws:
+        assert epoch == (step - 1) // 3 + 1
+        values = dict(re.findall(r"(\w+)=(-?[\d.]+)", shown))
+        if step == 1:
+            assert values == {}
+        elif step == 10:  # the log row, fetched there
+            assert set(values) == {"loss", "d_loss", "train_ssim",
+                                   "train_psnr", "train_rmse"}
+            assert float(values["loss"]) == pytest.approx(losses[9],
+                                                          abs=1e-4)
+            assert shown.endswith(" img/s")
+        else:
+            assert float(values["loss"]) == pytest.approx(
+                losses[step - 2], abs=1e-4), (step, shown)
+    # an inline line is redrawn or ended, never written after
+    assert text.count("\x1b[K") == text.count("\x1b[K\r") \
+        + text.count("\x1b[K\n")
+    lines = text.split("\n")
+    validations = [i for i, line in enumerate(lines)
+                   if re.match(r"\[pai_tpu_torch\] epoch \d+ step \d+: val_",
+                               line)]
+    assert len(validations) == 2
+    for i in validations:  # the line, ended just before
+        assert lines[i - 1].startswith("\r[pai_tpu_torch] epoch ")
+        assert lines[i - 1].endswith("\x1b[K")
+
+
+def test_off_a_terminal_only_the_log_rows_are_printed(run):
+    """Not a terminal: standard error holds the log row of step 10 alone,
+    a plain line, as before the live line existed; standard output the
+    validations."""
+    rows = {int(r["step"]): r for r in _csv_rows(run["log"]) if r["loss"]}
+    assert set(rows) == {10}
+    row = rows[10]
+    assert "\r" not in run["stderr"] and "\x1b" not in run["stderr"]
+    lines = run["stderr"].splitlines()
+    assert len(lines) == 1
+    values = " ".join(f"{k}={float(row[k]):.4f}"
+                      for k in ("loss", "mse_loss", "vlb_loss"))
+    assert re.fullmatch(re.escape(f"[pai_tpu_torch] epoch 4 step 10 "
+                                  f"{values} | ") + r"[\d.]+ img/s",
+                        lines[0]), lines[0]
+    assert [line.split(":")[0] for line in run["stdout"].splitlines()] == [
+        "[pai_tpu_torch] epoch 2 step 6", "[pai_tpu_torch] epoch 4 step 12"]
 
 
 def test_gan_slots_hold_both_networks_and_both_adam_chains(gan_run):

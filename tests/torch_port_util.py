@@ -309,21 +309,40 @@ def port_gan_models(params, stats, dparams, mults, dropout=0.0,
     return gen, disc
 
 
+def adam_initial_state(tx, tree):
+    """``tx.init(tree)`` of an optax Adam chain (``gan_optimizer``,
+    ``palette_optimizer``): zero moments and counts, made in numpy from the
+    state's abstract shapes. An eager ``init`` runs one JAX op per leaf,
+    and each op compiles on its own: seconds per model."""
+    import jax
+
+    return jax.tree.map(lambda leaf: np.zeros(leaf.shape, leaf.dtype),
+                        jax.eval_shape(tx.init, tree))
+
+
+def ema_initial_state(tree):
+    """``pai_tpu.train.ema.init_ema(tree)`` in numpy: copies of the weights,
+    no update counted yet."""
+    import jax
+    from pai_tpu.train.ema import EmaState
+
+    return EmaState(params=jax.tree.map(np.array, tree),
+                    num_updates=np.zeros((), np.int32))
+
+
 def jax_gan_state(params, stats, dparams, loss_type):
     """The JAX package's GAN train state over those trees, EMA on (the
     discriminator and its Adam chain only for ``gan``)."""
-    import jax.numpy as jnp
-    from pai_tpu.train.ema import init_ema
     from pai_tpu.train.state import GanTrainState, gan_optimizer
 
     gan = loss_type == "gan"
     d = dparams if gan else None
     return GanTrainState(
-        step=jnp.zeros((), jnp.int32), g_params=params, g_stats=stats,
-        g_opt=gan_optimizer().init(params), d_params=d,
-        d_opt=gan_optimizer().init(d) if gan else None,
-        ema=init_ema({"generator": params,
-                      "discriminator": d if gan else {}}))
+        step=np.zeros((), np.int32), g_params=params, g_stats=stats,
+        g_opt=adam_initial_state(gan_optimizer(), params), d_params=d,
+        d_opt=adam_initial_state(gan_optimizer(), d) if gan else None,
+        ema=ema_initial_state({"generator": params,
+                               "discriminator": d if gan else {}}))
 
 
 # ------------------------------------------------- GAN steps, port vs JAX
