@@ -21,11 +21,13 @@ printing one JSON line:
 
 1. ``device``  — card name and power limit, torch/CUDA versions, the precision
    switches as set, seconds spent building the kernels and the PNG codec.
-   ``build`` — per flash kernel instantiation, ptxas's registers and spills
-   (``-Xptxas -v``) and, where the toolkit has ``cuobjdump``, the count of
-   HMMA (tensor-core) instructions in its SASS: every flash kernel (forward,
-   dq, dkv) must have some, and no spills up to D = 128; the same report of
-   the three SSIM kernels, none of which may spill.
+   ``build`` — per flash kernel instantiation, its route, ptxas's registers
+   and spills (``-Xptxas -v``) and, where the toolkit has ``cuobjdump``, the
+   counts of HMMA (warp-level tensor-core), HGMMA (warpgroup ``wgmma``) and
+   UTMALDG (TMA load) instructions in its SASS: the forward and dkv in
+   bfloat16 at D = 64 and 128 must have HGMMA and UTMALDG, every other flash
+   kernel (forward, dq, dkv) HMMA, and none may spill up to D = 128; the
+   same report of the three SSIM kernels, none of which may spill.
 2. ``kernels`` — each kernel's wrapper against its plain version on CUDA
    tensors at the shapes the report path gives it and at ragged and
    multi-channel shapes; times by CUDA events (warmed, median of 25 samples
@@ -36,10 +38,13 @@ printing one JSON line:
    The flash-attention cases, forward and backward: the shapes the Palette
    paths launch, every head dim in float32 and bfloat16, a peaked case of
    each type (q and k four times larger: a nearly one-hot softmax), strided
-   views of a packed qkv tensor, the log-sum-exp output, and the inputs that
-   must raise; per case the arithmetic route (``mma-bf16`` or
-   ``mma-3xtf32``) and the bound at its rate, for float32 also at the CUDA
-   cores' rate; beside the kernel's time the plain version's and that
+   views of a packed qkv tensor, the log-sum-exp output (in every bfloat16
+   and peaked case too, and beside every backward case the o and lse that
+   the backward takes), and the inputs that must raise; per case the
+   arithmetic route (``wgmma-bf16``, ``mma-bf16`` or ``mma-3xtf32``) of the
+   kernel that the build phase saw launch at its type and head dim, two
+   launches bit-equal, and the bound at its rate, for float32 also at the
+   CUDA cores' rate; beside the kernel's time the plain version's and that
    of PyTorch's own fused attention call on the same tensors (timed here,
    used nowhere in the port).
 3. ``report``  — a 32-pair 256x256 synthetic dataset written with the port's
@@ -295,19 +300,30 @@ def device_kernel_us(fn, kernel_names, calls=20):
     return total / calls if total > 0 else None
 
 
-# the flash kernels that run on the tensor cores, and the head dims at which
-# ptxas must report no spills for them
-MMA_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-               "flash_bwd_dkv_kernel")
+# the CUDA kernels each flash wrapper launches, as the profiler and ptxas
+# name them: warp-level mma.sync, and at bfloat16 D = 64 and 128 the forward
+# and dkv on warpgroup wgmma with TMA loads
+FLASH_KERNEL_NAMES = {
+    "flash_fwd": ("flash_fwd_kernel", "flash_fwd_wgmma_kernel"),
+    "flash_bwd_dq": ("flash_bwd_dq_kernel",),
+    "flash_bwd_dkv": ("flash_bwd_dkv_kernel", "flash_bwd_dkv_wgmma_kernel")}
+WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel")
+# the head dims at which ptxas must report no spills for them
 NO_SPILL_HEAD_DIMS = (32, 64, 128)
+
+
+def flash_kernel_ms(events, name):
+    """Device ms of the CUDA kernels of flash wrapper `name` among profiler
+    events ({name: us})."""
+    return sum(us for key, us in events.items()
+               if any(k + "<" in key for k in FLASH_KERNEL_NAMES[name])) / 1e3
 
 
 def describe_instantiation(mangled):
     """(kernel, dtype, template integers) of a mangled kernel name, e.g.
     flash_fwd_kernel<float, 64, 128, 64> -> ("flash_fwd_kernel", "float32",
     [64, 128, 64]), or None for a name of no flash kernel."""
-    for kernel in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                   "flash_bwd_dkv_kernel"):
+    for kernel in (k for ks in FLASH_KERNEL_NAMES.values() for k in ks):
         at = mangled.find(kernel + "I")
         if at >= 0:
             rest = mangled[at + len(kernel) + 1:]
@@ -344,12 +360,25 @@ def launched_instantiations(fn):
     return found
 
 
+def flash_route(kernel, dtype):
+    """The arithmetic route of CUDA kernel `kernel` on `dtype` operands
+    ("bfloat16" or "float32")."""
+    if kernel in WGMMA_KERNELS:
+        return "wgmma-bf16"
+    return "mma-bf16" if dtype == "bfloat16" else "mma-3xtf32"
+
+
 def phase_build():
     """What ptxas reported for every flash kernel instantiation (registers,
-    spills), how many HMMA (tensor-core) instructions cuobjdump finds in it,
-    where the toolkit has cuobjdump, and the shared memory of one launch of
-    it (T = 256), from the profiler's trace. Fails if a tensor-core kernel
-    has no HMMA or spills at D <= 128."""
+    spills), how many HMMA (mma.sync), HGMMA (wgmma) and UTMALDG (TMA load)
+    instructions cuobjdump finds in it, where the toolkit has cuobjdump, and
+    the shared memory of one launch of it (T = 256), from the profiler's
+    trace. Returns that report and the route each flash wrapper took at each
+    (dtype, D), {(wrapper, "float32" or "bfloat16", D): route}, read from
+    the name of the kernel that launched. Fails if a kernel spills at
+    D <= 128, if a wgmma kernel (the forward and dkv in bfloat16 at D = 64
+    and 128, all four present) lacks HGMMA or UTMALDG, or if another flash
+    kernel lacks HMMA."""
     from pai_tpu_torch import kernels
     from pai_tpu_torch.kernels import flash_attention as fa
 
@@ -388,9 +417,10 @@ def phase_build():
                 if m:
                     current = m.group(1) if m.group(1) in entries else None
                     if current:
-                        entries[current]["hmma"] = 0
-                elif current and "HMMA" in line:
-                    entries[current]["hmma"] += 1
+                        entries[current].update(hmma=0, hgmma=0, utmaldg=0)
+                elif current:
+                    for op in ("HMMA", "HGMMA", "UTMALDG"):
+                        entries[current][op.lower()] += op in line
 
     def launch_every_instantiation():
         for dtype in (torch.float32, torch.bfloat16):
@@ -400,6 +430,14 @@ def phase_build():
                 fa.flash_attention_backward(q, k, v, o, lse, v)
 
     launched = launched_instantiations(launch_every_instantiation)
+    routes = {}
+    for kernel, dtype, template in launched:
+        wrapper = next(w for w, ks in FLASH_KERNEL_NAMES.items()
+                       if kernel in ks)
+        key = (wrapper, dtype, template[0])
+        check(key not in routes, f"{wrapper} {dtype} D={template[0]} "
+              "launched two kernels")
+        routes[key] = flash_route(kernel, dtype)
     for e in entries.values():
         args = launched.get((e["kernel"], e["dtype"], tuple(e["template"])))
         check(args is not None, f"no launch of {e['kernel']} {e['dtype']} "
@@ -410,14 +448,26 @@ def phase_build():
                                                    e["template"]))
     check(len(rows) == 24, f"ptxas reported {len(rows)} flash kernel "
           "instantiations, expected 24 (3 kernels x 2 types x 4 head dims)")
+    wgmma = sorted((e["kernel"], e["template"][0]) for e in rows
+                   if e["kernel"] in WGMMA_KERNELS
+                   and e["dtype"] == "bfloat16")
+    check(wgmma == [(k, d) for k in sorted(WGMMA_KERNELS) for d in (64, 128)],
+          f"wgmma instantiations {wgmma}: expected the forward and dkv in "
+          "bfloat16 at D = 64 and 128")
     for e in rows:
-        if e["kernel"] not in MMA_KERNELS:
-            continue
         d = e["template"][0]
+        e["route"] = flash_route(e["kernel"], e["dtype"])
         if d in NO_SPILL_HEAD_DIMS:
             check(e.get("spill_stores") == 0 and e.get("spill_loads") == 0,
                   f"{e['kernel']} {e['dtype']} D={d} spills: {e}")
-        if have_cuobjdump:
+        if not have_cuobjdump:
+            continue
+        if e["kernel"] in WGMMA_KERNELS:
+            check(e.get("hgmma", 0) > 0 and e.get("utmaldg", 0) > 0,
+                  f"{e['kernel']} {e['dtype']} D={d} has {e.get('hgmma')} "
+                  f"HGMMA and {e.get('utmaldg')} UTMALDG: not on wgmma with "
+                  "TMA loads")
+        else:
             check(e.get("hmma", 0) > 0, f"{e['kernel']} {e['dtype']} D={d} "
                   "has no HMMA instruction: not on the tensor cores")
     ssim_rows = ssim_ptxas(kernels.build_log("ssim"))
@@ -428,7 +478,7 @@ def phase_build():
               f"SSIM kernel {e['kernel']} spills: {e}")
     return {"phase": "build", "cuobjdump": have_cuobjdump,
             "kernel_build_seconds": kernels.build_seconds,
-            "instantiations": rows, "ssim": ssim_rows}
+            "instantiations": rows, "ssim": ssim_rows}, routes
 
 
 def ssim_ptxas(log):
@@ -664,9 +714,6 @@ def report_cases(device):
 
 
 
-def mma_route(dtype):
-    """How the flash kernels multiply operands of `dtype`."""
-    return "mma-bf16" if dtype == torch.bfloat16 else "mma-3xtf32"
 
 
 def tensor_core_rate(dtype):
@@ -719,8 +766,9 @@ def expect_raises(kind, fn, what):
     raise SmokeFailure(f"{what} did not raise {kind.__name__}")
 
 
-def phase_flash(device):
-    """The flash-attention wrapper vs its plain version on the card."""
+def phase_flash(device, routes):
+    """The flash-attention wrapper vs its plain version on the card; each
+    case's route from ``routes`` (phase_build's)."""
     import torch.nn.functional as F
 
     from pai_tpu_torch import kernels
@@ -757,8 +805,9 @@ def phase_flash(device):
         check(bool(torch.isfinite(got).all()), f"flash_fwd not finite {shape}")
         err = float((got.float() - want.float()).abs().max())
         entry = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
-                 "peak": peak, "arith_route": mma_route(dtype),
-                 "max_abs_err": err}
+                 "peak": peak, "max_abs_err": err}
+        entry["arith_route"] = routes[("flash_fwd", entry["dtype"],
+                                       shape[-1])]
         if peak == 1.0:
             limit = FLASH_TOL if dtype == torch.float32 else \
                 FLASH_BF16_REL_TOL * max(1.0, float(want.float().abs().max()))
@@ -774,20 +823,26 @@ def phase_flash(device):
             limit = FLASH_PEAKED_FACTOR * FLASH_TOL
             check(err <= limit, f"flash_fwd differs from plain at {shape} "
                   f"peaked: {err} > {limit}")
-            _, lse = flash_attention(q, k, v, emit_lse=True)
-            lse_err = float((lse - want_lse).abs().max())
-            lse_limit = FLASH_PEAKED_FACTOR * FLASH_LSE_TOL
-            check(lse_err <= lse_limit, f"flash_fwd lse at {shape} peaked: "
-                  f"{lse_err} > {lse_limit}")
-            entry.update(limit=limit, lse_max_abs_err=lse_err,
-                         lse_limit=lse_limit)
+            entry["limit"] = limit
         else:
             ulps = bf16_ulps(got, want)
             check(ulps <= FLASH_BF16_ULPS, f"flash_fwd differs from "
                   f"plain at {shape} bf16 peaked: {ulps} bf16 units")
             entry.update(bf16_ulps=ulps, limit_ulps=FLASH_BF16_ULPS)
+        # the lse that the backward and ring attention's hops take, held
+        # against the plain one in every bfloat16 case and the peaked ones
+        if dtype == torch.bfloat16 or peak != 1.0:
+            _, lse = flash_attention(q, k, v, emit_lse=True)
+            lse_err = float((lse - want_lse).abs().max())
+            lse_limit = FLASH_LSE_TOL * (FLASH_PEAKED_FACTOR if peak != 1.0
+                                         else 1)
+            check(lse_err <= lse_limit, f"flash_fwd lse at {shape} {dtype} "
+                  f"(q, k x {peak}): {lse_err} > {lse_limit}")
+            entry.update(lse_max_abs_err=lse_err, lse_limit=lse_limit)
+            del lse
         check(torch.equal(got, flash_attention(q, k, v)),
-              f"flash_fwd is not bit-reproducible at {shape}")
+              f"flash_fwd ({entry['arith_route']}) is not bit-reproducible "
+              f"at {shape}: two launches differ")
         bound_ms, bound_by = flash_bound(shape, dtype)
         entry.update(ms=time_ms(lambda: flash_attention(q, k, v), samples=5,
                                 calls=3),
@@ -800,7 +855,8 @@ def phase_flash(device):
                 plain_ms=time_ms(lambda: flash_attention_plain(q, k, v),
                                  samples=3, calls=1),
                 kernel_us=device_kernel_us(lambda: flash_attention(q, k, v),
-                                           ("flash_fwd_kernel",), calls=3),
+                                           FLASH_KERNEL_NAMES["flash_fwd"],
+                                           calls=3),
                 # the yardstick: timed only (float32 with TF32 off, as set)
                 library_ms=time_ms(
                     lambda: F.scaled_dot_product_attention(
@@ -1355,8 +1411,7 @@ def phase_palette(device, workdir):
     with torch.inference_mode():
         forward_ms = time_ms(lambda: unet(xb, yb, gb), samples=3, calls=2)
         events = device_profile(lambda: unet(xb, yb, gb))[0]
-        flash_us = sum(us for name, us in events.items()
-                       if "flash_fwd_kernel" in name)
+        flash_us = 1e3 * flash_kernel_ms(events, "flash_fwd")
         top_events = sorted(events.items(), key=lambda kv: -kv[1])[:12]
         # how long the host takes to enqueue one forward, against how long
         # the device takes to finish it
@@ -1439,12 +1494,12 @@ SLOT_BYTES = 3 * 4 * PALETTE_PARAMETERS
 
 
 def flash_bwd_bounds(shape, dtype):
-    """{kernel: {"arith_route", "bound_ms", "bound_by"}} of the two backward
-    kernels: operations (6 and 8 x B*H*T*T*D) over the peak rate of the
-    operands' type, against the bytes each must move (q, k, v, dO, lse, delta
-    read once; dq, or dk and dv, written once) over the memory rate. Both
-    run on the tensor cores (mma_route, at tensor_core_rate); for float32
-    operands the bound at the CUDA cores' rate is given beside it."""
+    """{kernel: {"bound_ms", "bound_by"}} of the two backward kernels:
+    operations (6 and 8 x B*H*T*T*D) over the peak rate of the operands'
+    type, against the bytes each must move (q, k, v, dO, lse, delta read
+    once; dq, or dk and dv, written once) over the memory rate. Both run on
+    the tensor cores (at tensor_core_rate); for float32 operands the bound at
+    the CUDA cores' rate is given beside it."""
     b, h, t, d = shape
     size = 2 if dtype == torch.bfloat16 else 4
     out = {}
@@ -1454,17 +1509,17 @@ def flash_bwd_bounds(shape, dtype):
         flops = ops * b * h * t * t * d
         bound_ms, bound_by = larger_bound(nbytes, flops,
                                           tensor_core_rate(dtype))
-        out[name] = {"arith_route": mma_route(dtype), "bound_ms": bound_ms,
-                     "bound_by": bound_by}
+        out[name] = {"bound_ms": bound_ms, "bound_by": bound_by}
         if dtype == torch.float32:
             out[name]["bound_ms_cuda_cores"] = larger_bound(
                 nbytes, flops, F32_FLOP_PER_S)[0]
     return out
 
 
-def phase_flash_backward(device):
+def phase_flash_backward(device, routes):
     """The flash-attention backward wrapper vs its plain version on the
-    card, each kernel timed alone."""
+    card, each kernel timed alone; each case's routes from ``routes``
+    (phase_build's)."""
     import torch.nn.functional as F
 
     from pai_tpu_torch import kernels
@@ -1500,6 +1555,25 @@ def phase_flash_backward(device):
                   f"{name} did not count its launch at {shape}")
         entry = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
                  "peak": peak}
+        # both backwards take the forward kernel's o and lse, as training
+        # does: hold those to the plain forward's at the forward's gates
+        want_o, want_lse = fa.flash_attention_plain(q, k, v, emit_lse=True)
+        factor = FLASH_PEAKED_FACTOR if peak != 1.0 else 1
+        lse_err = float((lse - want_lse).abs().max())
+        check(lse_err <= factor * FLASH_LSE_TOL, f"flash_fwd lse at {shape} "
+              f"{dtype} (q, k x {peak}): {lse_err} > {factor * FLASH_LSE_TOL}")
+        entry["lse_max_abs_err"] = lse_err
+        if dtype == torch.bfloat16:
+            o_ulps = bf16_ulps(o, want_o)
+            check(o_ulps <= FLASH_BF16_ULPS, f"flash_fwd o at {shape} bf16 "
+                  f"(q, k x {peak}): {o_ulps} bf16 units")
+            entry["o_bf16_ulps"] = o_ulps
+        else:
+            o_err = float((o - want_o).abs().max())
+            check(o_err <= factor * FLASH_TOL, f"flash_fwd o at {shape} "
+                  f"(q, k x {peak}): {o_err} > {factor * FLASH_TOL}")
+            entry["o_max_abs_err"] = o_err
+        del want_o, want_lse
         for tag, g, w in zip(("dq", "dk", "dv"), got, want):
             check(g.shape == q.shape and g.dtype == dtype and g.is_cuda,
                   f"flash backward {tag}: {tuple(g.shape)} {g.dtype}")
@@ -1524,13 +1598,17 @@ def phase_flash_backward(device):
             entry[f"{tag}_limit"] = limit
         again = fa.flash_attention_backward(q, k, v, o, lse, do)
         check(all(torch.equal(a, b) for a, b in zip(again, got)),
-              f"flash backward is not bit-reproducible at {shape}")
+              f"flash backward is not bit-reproducible at {shape} {dtype}: "
+              "two launches differ")
         call = fa.prepare_backward(q, k, v, o, lse, do)
         bounds = flash_bwd_bounds(shape, dtype)
         for name, launch in (("flash_bwd_dq", fa.launch_dq),
                              ("flash_bwd_dkv", fa.launch_dkv)):
             entry[name] = {"ms": time_ms(lambda: launch(call), samples=5,
-                                         calls=3), **bounds[name]}
+                                         calls=3),
+                           "arith_route": routes[(name, entry["dtype"],
+                                                  shape[-1])],
+                           **bounds[name]}
         entry["backward_ms"] = time_ms(
             lambda: fa.flash_attention_backward(q, k, v, o, lse, do),
             samples=5, calls=3)
@@ -1541,7 +1619,7 @@ def phase_flash_backward(device):
             for name in ("flash_bwd_dq", "flash_bwd_dkv"):
                 entry[name]["kernel_us"] = device_kernel_us(
                     lambda: fa.flash_attention_backward(q, k, v, o, lse, do),
-                    (name + "_kernel",), calls=3)
+                    FLASH_KERNEL_NAMES[name], calls=3)
             # the yardstick: the backward of PyTorch's fused attention on the
             # same tensors (timed only; float32 with TF32 off, as set)
             leaves = [x.detach().clone().requires_grad_(True)
@@ -1563,8 +1641,10 @@ def phase_flash_backward(device):
     q, k, v = (packed[:, :, :, i].permute(0, 2, 1, 3) for i in range(3))
     do = random_qkv((2, 4, 4096, 64), 211, device)[0]
     o, lse = fa.flash_attention(q, k, v, emit_lse=True)
-    want = fa.flash_attention_backward_plain(q.contiguous(), k.contiguous(),
-                                             v.contiguous(), o, lse, do)
+    want = fa.flash_attention_backward_plain(
+        q.contiguous(), k.contiguous(), v.contiguous(),
+        *fa.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), emit_lse=True), do)
     got = fa.flash_attention_backward(q, k, v, o, lse, do)
     torch.cuda.synchronize()
     strided_err = max(float((g - w).abs().max()) / float(w.abs().max())
@@ -1873,8 +1953,7 @@ def phase_train(device, workdir):
     # profiler's device time per kernel over the CUDA-event time of a step
     events, busy_ms, span_ms = device_profile(
         lambda: step(state, batch.x, batch.y), calls=1)
-    kernel_ms = {name: sum(us for key, us in events.items()
-                           if name + "_kernel" in key) / 1e3
+    kernel_ms = {name: flash_kernel_ms(events, name)
                  for name in TRAIN_LAUNCHES_PER_STEP}
     step_ms = step_event_ms(lambda: step(state, batch.x, batch.y), 2)
     top_events = sorted(events.items(), key=lambda kv: -kv[1])[:12]
@@ -1974,8 +2053,7 @@ def bf16_path(device, workdir):
             events, forward_device_ms, _ = device_profile(
                 lambda: model(xs, ys, gamma))
         forward_dtypes = flash_operand_types(events)
-        forward_flash_ms = sum(us for name, us in events.items()
-                               if "flash_fwd_kernel" in name) / 1e3
+        forward_flash_ms = flash_kernel_ms(events, "flash_fwd")
         check(out.shape == (PALETTE_BATCH, SIZE, SIZE, 1)
               and out.dtype == torch.float32
               and bool(torch.isfinite(out).all()) and float(out.std()) > 0,
@@ -2016,8 +2094,7 @@ def bf16_path(device, workdir):
         step_dtypes = flash_operand_types(events)
         check(step_dtypes == ["__nv_bfloat16"],
               f"flash kernels in the bf16 step: {step_dtypes}")
-        kernel_ms = {name: sum(us for key, us in events.items()
-                               if name + "_kernel" in key) / 1e3
+        kernel_ms = {name: flash_kernel_ms(events, name)
                      for name in TRAIN_LAUNCHES_PER_STEP}
         step_ms = step_event_ms(lambda: step(state, x, y), 2)
         top_events = sorted(events.items(), key=lambda kv: -kv[1])[:12]
@@ -4446,10 +4523,11 @@ def main():
         seconds[name] = time.perf_counter() - start
         return out
 
-    emit(timed("build", phase_build))
+    build, routes = timed("build", phase_build)
+    emit(build)
     cases, report_batch = timed("kernels", phase_kernels, device)
-    flash_cases = timed("flash", phase_flash, device)
-    bwd_cases = timed("flash_backward", phase_flash_backward, device)
+    flash_cases = timed("flash", phase_flash, device, routes)
+    bwd_cases = timed("flash_backward", phase_flash_backward, device, routes)
     with tempfile.TemporaryDirectory(prefix="pai_smoke_") as workdir:
         launches = timed("report", phase_report, device, workdir)
         palette_launches = timed("palette", phase_palette, device, workdir)

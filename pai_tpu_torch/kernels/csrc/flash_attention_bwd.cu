@@ -10,22 +10,27 @@
 //     P  = exp(s^2 Q K^T - lse)          (recomputed, never stored)
 //     dS = P * (dO V^T - delta)
 //     dQ = s^2 dS K                      flash_bwd_dq_kernel
-//     dV = P^T dO,  dK = s^2 dS^T Q      flash_bwd_dkv_kernel
+//     dV = P^T dO,  dK = s^2 dS^T Q      flash_bwd_dkv_kernel, and at bf16
+//                                        D = 64 and 128
+//                                        flash_bwd_dkv_wgmma_kernel
 //
 // Operands are float or bfloat16; P and dS are float32 and every sum is
 // float32; the outputs are written in the operands' type.
 //
 // What bounds them on an H100: operations. dq does three products of
 // 2*T^2*D per head (6*B*H*T^2*D), dkv four (8*B*H*T^2*D), against some
-// 8*B*H*T*D elements moved. So every product of both kernels runs as
-// warp-level mma.sync on the tensor cores (flash_mma.cuh): bf16 m16n8k16 for
-// bfloat16 operands (P and dS, float32 values, as two bf16 terms), 3xTF32
-// m16n8k8 for float32 ones (float32 accuracy, never TF32 alone).
+// 8*B*H*T*D elements moved. So every product of both kernels runs on the
+// tensor cores, P and dS (float32 values) as two bf16 terms: dkv in bfloat16
+// at D = 64 and D = 128 (the bf16-mixed Palette path's shapes) on Hopper's
+// warpgroup wgmma with TMA tile loads (flash_wgmma.cuh), everything else on
+// warp-level mma.sync (flash_mma.cuh): bf16 m16n8k16 for bfloat16 operands,
+// 3xTF32 m16n8k8 for float32 ones (float32 accuracy, never TF32 alone).
+// launch_for_d fixes the route by (dtype, D).
 //
 // * Each output tile has exactly one writer, as on the TPU: dq's block owns
 //   one (batch*head, query tile) and loops over the K/V tiles; dkv's block
 //   owns one (batch*head, key tile) and loops over the query tiles. No
-//   atomics and a fixed order of mma accumulation, so the result is
+//   atomics and a fixed order of accumulation, so the result is
 //   bit-reproducible, and lse and delta are inputs, never recomputed inside:
 //   a caller may pass a global lse that spans more keys than the ones it
 //   hands over (ring attention's hops).
@@ -36,18 +41,21 @@
 //
 // Dynamic shared memory (up to 202,752 bytes), so each instantiation is given
 // cudaFuncAttributeMaxDynamicSharedMemorySize before its launch. Plain C
-// interface; each entry returns cudaGetLastError().
+// interface; each entry returns the CUDA error code (a tensor map the driver
+// refuses is cudaErrorInvalidValue).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "flash_mma.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
 using flash_mma::Warp;
 using flash_mma::kLog2e;
+using flash_mma::smem_addr;
 
 struct BwdParams {
     const void* q;
@@ -350,6 +358,330 @@ flash_bwd_dkv_kernel(const BwdParams p) {
     flash_mma::store_rows<T, OT>(dv_g, p.dv_st, dv, 1.0f, 1.0f, lane);
 }
 
+// ------------------------------------------------------ dK, dV: wgmma route
+// bfloat16 at D = 64 and D = 128 (flash_wgmma.cuh). One block of two
+// warpgroups owns 64 keys of one batch*head, all D columns (no column split:
+// S^T and dP^T are computed once per query tile). K and V are loaded once by
+// TMA and stay in shared memory; BQ-row Q and dO tiles, with their lse and
+// delta rows (bulk copies), stream through a ring of STAGES stages. The two
+// warpgroups split the products, each holding one D-wide float32
+// accumulator (D/2 registers a thread) from the first query tile to the
+// last:
+//   warpgroup 0:  S^T = K Q^T                  SS wgmmas, BQ wide
+//                 P^T = exp2(s^2 log2(e) S^T - lse log2(e))
+//                 -> P^T to shared memory for warpgroup 1
+//                 dV += P^T dO                 RS wgmmas
+//   warpgroup 1:  dP^T = V dO^T                SS wgmmas, BQ wide
+//                 dS^T = P^T (dP^T - delta)    P^T from shared memory
+//                 dK += dS^T Q                 RS wgmmas
+// so each runs three of the six products' worth of tensor work (P^T and
+// dS^T enter as hi and lo bf16 terms), and warpgroup 1's elementwise work
+// runs while warpgroup 0's dV wgmmas do. The RS products run per 64-column
+// box in partials of 32 queries (kPnKeys), each a fresh accumulator added in
+// float32, two in flight. P^T passes through two shared-memory buffers, each
+// with a `full` and an `empty` mbarrier (128 arrivals: every thread of one
+// warpgroup); the two warpgroups' fragments lie alike, so thread t of
+// warpgroup 1 reads what thread t of warpgroup 0 wrote. A ring stage is
+// released by one arrival per warp of both warpgroups; warpgroup 1, which
+// waits for P^T and so runs behind, refills it (refilled by a thread of
+// warpgroup 0, which then waited for warpgroup 1 every tile, the kernel was
+// slower).
+// What bounds it: the CUDA-core work besides the products (the exponential,
+// dS^T, the hi/lo splits and the partial adds: some 15 instructions per
+// element of S^T, the adds 2 D / 32 of them) and each warpgroup's waits for
+// its own wgmmas. Holding both dK and dV in each warpgroup (128 keys a
+// block) took 255 registers and spilled at D = 128; split, the block takes
+// 216 (D = 64, BQ = 128) and 226 (D = 128, BQ = 64) and spills nothing.
+template <int D, int BQ, int STAGES> struct DkvWgmmaLayout {
+    static constexpr int kBK = 64;
+    static constexpr int kBoxes = D / flash_wgmma::kBoxCols;
+    static constexpr int kKvBox = kBK * flash_wgmma::kRowBytes;  // bytes
+    static constexpr int kQBox = BQ * flash_wgmma::kRowBytes;
+    static constexpr int kK = 0;
+    static constexpr int kV = kK + kBoxes * kKvBox;
+    static constexpr int kQ = kV + kBoxes * kKvBox;
+    static constexpr int kDo = kQ + STAGES * kBoxes * kQBox;
+    static constexpr int kLse = kDo + STAGES * kBoxes * kQBox;  // float32
+    static constexpr int kDelta = kLse + STAGES * BQ * 4;
+    static constexpr int kP = kDelta + STAGES * BQ * 4;  // 2 x 64 x BQ floats
+    static constexpr int kPBuf = kBK * BQ * 4;
+    static constexpr int kBar = kP + 2 * kPBuf;
+    // barriers: K and V; Q full, dO full and empty of each stage; P full
+    // and P empty of each buffer
+    static constexpr int kBytes = kBar + 8 * (1 + 3 * STAGES + 4) + 1024;
+    static constexpr uint32_t kTileBytes = BQ * D * 2 + BQ * 4;
+};
+
+template <int STAGES> struct DkvBarriers {
+    uint32_t base;
+    __device__ uint32_t kv() const { return base; }
+    __device__ uint32_t q(int s) const { return base + 8 * (1 + s); }
+    __device__ uint32_t dout(int s) const {
+        return base + 8 * (1 + STAGES + s);
+    }
+    __device__ uint32_t empty(int s) const {
+        return base + 8 * (1 + 2 * STAGES + s);
+    }
+    __device__ uint32_t p_full(int i) const {
+        return base + 8 * (1 + 3 * STAGES + i);
+    }
+    __device__ uint32_t p_empty(int i) const {
+        return base + 8 * (3 + 3 * STAGES + i);
+    }
+};
+
+// Q with its lse rows and dO with its delta rows of query tile `tile` into
+// its ring stage (thread 0 only).
+template <int D, int BQ, int STAGES>
+__device__ __forceinline__ void dkv_load_tile(const CUtensorMap* tm_q,
+                                              const CUtensorMap* tm_do,
+                                              const BwdParams& p, int bh,
+                                              uint32_t base,
+                                              DkvBarriers<STAGES> bar,
+                                              int tile) {
+    using L = DkvWgmmaLayout<D, BQ, STAGES>;
+    namespace fw = flash_wgmma;
+    const int b = bh / p.heads;
+    const int h = bh % p.heads;
+    const long long row = static_cast<long long>(bh) * p.t + tile * BQ;
+    const int s = tile % STAGES;
+    const uint32_t q_s = base + L::kQ + s * L::kBoxes * L::kQBox;
+    const uint32_t do_s = base + L::kDo + s * L::kBoxes * L::kQBox;
+    fw::mbar_expect_tx(bar.q(s), L::kTileBytes);
+    for (int box = 0; box < L::kBoxes; ++box)
+        fw::tma_load(q_s + box * L::kQBox, tm_q, bar.q(s),
+                     box * fw::kBoxCols, tile * BQ, h, b);
+    fw::bulk_load(base + L::kLse + s * BQ * 4, p.lse + row, BQ * 4, bar.q(s));
+    fw::mbar_expect_tx(bar.dout(s), L::kTileBytes);
+    for (int box = 0; box < L::kBoxes; ++box)
+        fw::tma_load(do_s + box * L::kQBox, tm_do, bar.dout(s),
+                     box * fw::kBoxCols, tile * BQ, h, b);
+    fw::bulk_load(base + L::kDelta + s * BQ * 4, p.delta + row, BQ * 4,
+                  bar.dout(s));
+}
+
+// One warpgroup's side: wg 0 (S^T, P^T, dV) or 1 (dP^T, dS^T, dK).
+template <typename T, int D, int BQ, int STAGES>
+__device__ __forceinline__ void dkv_consume(const BwdParams& p,
+                                            const CUtensorMap* tm_q,
+                                            const CUtensorMap* tm_do,
+                                            unsigned char* smem,
+                                            DkvBarriers<STAGES> bar, int bh,
+                                            int k0, int wg, int n_tiles) {
+    using L = DkvWgmmaLayout<D, BQ, STAGES>;
+    using MMA_S = flash_wgmma::Wgmma<BQ>;
+    using MMA_O = flash_wgmma::Wgmma<flash_wgmma::kBoxCols>;
+    namespace fw = flash_wgmma;
+    constexpr int QT = BQ / 8;  // 8-column tiles of S^T (queries)
+    const int tid = threadIdx.x & 127;
+    const int lane = threadIdx.x & 31;
+    const int warp = tid >> 5;      // within the warpgroup
+    const int t2 = 2 * (lane & 3);  // this thread's first column of a tile
+    const uint32_t base = smem_addr(smem);
+    // warpgroup 0 multiplies K by Q and P^T by dO; warpgroup 1 V by dO and
+    // dS^T by Q
+    const uint32_t a_w = base + (wg == 0 ? L::kK : L::kV);
+
+    float acc[L::kBoxes][8][4];  // dV (warpgroup 0) or dK (warpgroup 1)
+#pragma unroll
+    for (int x = 0; x < L::kBoxes; ++x)
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[x][i][c] = 0.0f;
+
+    fw::mbar_wait(bar.kv(), 0);
+    for (int tile = 0; tile < n_tiles; ++tile) {
+        const int s = tile % STAGES;
+        const uint32_t parity = (tile / STAGES) & 1;
+        const uint32_t q_s = base + L::kQ + s * L::kBoxes * L::kQBox;
+        const uint32_t do_s = base + L::kDo + s * L::kBoxes * L::kQBox;
+        // warpgroup 1, which waits for warpgroup 0's P^T and so runs
+        // behind it, refills the stage of the tile before: its first thread
+        // finds both warpgroups done with it and never holds warpgroup 0 up
+        const int refill = tile - 1 + STAGES;
+        if (threadIdx.x == 128 && tile > 0 && refill < n_tiles) {
+            fw::mbar_wait(bar.empty((tile - 1) % STAGES),
+                          ((tile - 1) / STAGES) & 1);
+            dkv_load_tile<D, BQ, STAGES>(tm_q, tm_do, p, bh, base, bar,
+                                         refill);
+        }
+
+        // ---- S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (warpgroup 1):
+        // rows keys, columns queries
+        const uint32_t a_t = fw::opaque(a_w);
+        const uint32_t b_s = wg == 0 ? q_s : do_s;
+        float sc[QT][4];
+        fw::mbar_wait(wg == 0 ? bar.q(s) : bar.dout(s), parity);
+        fw::wgmma_fence();
+        MMA_S::ss_first(sc, fw::kmajor_desc(a_t, L::kKvBox, 0),
+                        fw::kmajor_desc(b_s, L::kQBox, 0));
+#pragma unroll
+        for (int kk = 1; kk < D / 16; ++kk)
+            MMA_S::ss(sc, fw::kmajor_desc(a_t, L::kKvBox, kk),
+                      fw::kmajor_desc(b_s, L::kQBox, kk));
+        fw::wgmma_commit();
+        fw::wgmma_wait<0>();
+        fw::fence_regs(sc);
+
+        // ---- P^T, through shared memory, and dS^T
+        const int buf = tile & 1;
+        const uint32_t use = (tile >> 1) & 1;  // parity of this buffer's use
+        float4* p_buf = reinterpret_cast<float4*>(smem + L::kP
+                                                  + buf * L::kPBuf) + tid;
+        if (wg == 0) {
+            const float* lse_s = reinterpret_cast<const float*>(
+                smem + L::kLse) + s * BQ;
+#pragma unroll
+            for (int j = 0; j < QT; ++j) {
+                const float2 lse = *reinterpret_cast<const float2*>(
+                    lse_s + 8 * j + t2);
+#pragma unroll
+                for (int c = 0; c < 4; ++c) {
+                    const float l2 = ((c & 1) ? lse.y : lse.x) * kLog2e;
+                    sc[j][c] = fw::exp2_ftz(fmaf(sc[j][c], p.logit_scale,
+                                                 -l2));
+                }
+            }
+            if (tile >= 2) fw::mbar_wait(bar.p_empty(buf), use ^ 1);
+#pragma unroll
+            for (int j = 0; j < QT; ++j)
+                p_buf[128 * j] = make_float4(sc[j][0], sc[j][1], sc[j][2],
+                                             sc[j][3]);
+            fw::mbar_arrive(bar.p_full(buf));
+            fw::mbar_wait(bar.dout(s), parity);  // dO, for dV
+        } else {
+            const float* dl_s = reinterpret_cast<const float*>(
+                smem + L::kDelta) + s * BQ;
+            fw::mbar_wait(bar.p_full(buf), use);
+#pragma unroll
+            for (int j = 0; j < QT; ++j) {
+                const float4 pv = p_buf[128 * j];
+                const float2 dlt = *reinterpret_cast<const float2*>(
+                    dl_s + 8 * j + t2);
+                sc[j][0] = pv.x * (sc[j][0] - dlt.x);
+                sc[j][1] = pv.y * (sc[j][1] - dlt.y);
+                sc[j][2] = pv.z * (sc[j][2] - dlt.x);
+                sc[j][3] = pv.w * (sc[j][3] - dlt.y);
+            }
+            fw::mbar_arrive(bar.p_empty(buf));
+            fw::mbar_wait(bar.q(s), parity);  // Q, for dK
+        }
+
+        // ---- dV += P^T dO or dK += dS^T Q: per 64-column box, one partial
+        // of kPnKeys queries each (four RS wgmmas into a fresh accumulator),
+        // two partials in flight
+        uint32_t a_hi[QT / 2][4], a_lo[QT / 2][4];
+#pragma unroll
+        for (int i = 0; i < QT / 2; ++i)
+            fw::split_step(sc, i, a_hi[i], a_lo[i]);
+        const uint32_t m_s = wg == 0 ? do_s : q_s;
+        constexpr int kSteps = flash_mma::kPnKeys / 16;
+        constexpr int kJobs = BQ / flash_mma::kPnKeys * L::kBoxes;
+        float part[2][8][4];
+#pragma unroll
+        for (int j = 0; j <= kJobs; ++j) {
+            if (j < kJobs) {
+                const int x = j % L::kBoxes;
+                const int q0 = kSteps * (j / L::kBoxes);
+                const uint32_t m_x = m_s + x * L::kQBox;
+                fw::wgmma_fence();
+                // the small terms first (as in the forward)
+                MMA_O::rs_t_first(part[j & 1], a_lo[q0],
+                                  fw::mnmajor_desc(m_x, L::kQBox, q0));
+#pragma unroll
+                for (int i = 1; i < kSteps; ++i)
+                    MMA_O::rs_t(part[j & 1], a_lo[q0 + i],
+                                fw::mnmajor_desc(m_x, L::kQBox, q0 + i));
+#pragma unroll
+                for (int i = 0; i < kSteps; ++i)
+                    MMA_O::rs_t(part[j & 1], a_hi[q0 + i],
+                                fw::mnmajor_desc(m_x, L::kQBox, q0 + i));
+                fw::wgmma_commit();
+            }
+            if (j > 0) {
+                if (j < kJobs)
+                    fw::wgmma_wait<1>();
+                else
+                    fw::wgmma_wait<0>();
+                const int x = (j - 1) % L::kBoxes;
+                fw::fence_regs(part[(j - 1) & 1]);
+#pragma unroll
+                for (int i = 0; i < 8; ++i)
+#pragma unroll
+                    for (int c = 0; c < 4; ++c)
+                        acc[x][i][c] += part[(j - 1) & 1][i][c];
+            }
+        }
+        __syncwarp();
+        if (lane == 0) fw::mbar_arrive(bar.empty(s));
+    }
+
+    // warpgroup 0 writes dV, warpgroup 1 dK (times s^2)
+    const int b = bh / p.heads;
+    const int h = bh % p.heads;
+    const long long row0 = k0 + 16 * warp;
+    T* out = wg == 0
+        ? static_cast<T*>(p.dv) + b * p.dv_sb + h * p.dv_sh + row0 * p.dv_st
+        : static_cast<T*>(p.dk) + b * p.dk_sb + h * p.dk_sh + row0 * p.dk_st;
+    const long long stride = wg == 0 ? p.dv_st : p.dk_st;
+    const float scale = wg == 0 ? 1.0f : p.grad_scale;
+#pragma unroll
+    for (int x = 0; x < L::kBoxes; ++x)
+        flash_mma::store_rows<T, 8>(out + x * fw::kBoxCols, stride, acc[x],
+                                    scale, scale, lane);
+}
+
+template <typename T, int D, int BQ, int STAGES>
+__global__ void __launch_bounds__(flash_wgmma::kThreads, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_do,
+                           const BwdParams p) {
+    static_assert(sizeof(T) == 2, "the wgmma route takes bfloat16");
+    using L = DkvWgmmaLayout<D, BQ, STAGES>;
+    namespace fw = flash_wgmma;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = fw::align_1024(smem_raw);
+    const uint32_t base = smem_addr(smem);
+    const DkvBarriers<STAGES> bar{base + L::kBar};
+    const int bh = blockIdx.y;
+    const int k0 = blockIdx.x * L::kBK;
+    const int n_tiles = p.t / BQ;
+
+    if (threadIdx.x == 0) {
+        fw::mbar_init(bar.kv(), 1);
+        for (int s = 0; s < STAGES; ++s) {
+            fw::mbar_init(bar.q(s), 1);
+            fw::mbar_init(bar.dout(s), 1);
+            fw::mbar_init(bar.empty(s), 8);  // every warp
+        }
+        for (int i = 0; i < 2; ++i) {
+            fw::mbar_init(bar.p_full(i), 128);   // warpgroup 0's threads
+            fw::mbar_init(bar.p_empty(i), 128);  // warpgroup 1's threads
+        }
+        fw::fence_barrier_init();
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {  // K and V, and the first STAGES query tiles
+        const int b = bh / p.heads;
+        const int h = bh % p.heads;
+        fw::mbar_expect_tx(bar.kv(), 2 * L::kBK * D * 2);
+        for (int box = 0; box < L::kBoxes; ++box) {
+            fw::tma_load(base + L::kK + box * L::kKvBox, &tm_k, bar.kv(),
+                         box * fw::kBoxCols, k0, h, b);
+            fw::tma_load(base + L::kV + box * L::kKvBox, &tm_v, bar.kv(),
+                         box * fw::kBoxCols, k0, h, b);
+        }
+        for (int tile = 0; tile < STAGES && tile < n_tiles; ++tile)
+            dkv_load_tile<D, BQ, STAGES>(&tm_q, &tm_do, p, bh, base, bar,
+                                         tile);
+    }
+    dkv_consume<T, D, BQ, STAGES>(p, &tm_q, &tm_do, smem, bar, bh, k0,
+                                  threadIdx.x >> 7, n_tiles);
+}
+
 template <typename T, int D, int BQ, int BK>
 cudaError_t launch_dq(const BwdParams& p, int batch, cudaStream_t stream) {
     constexpr int kBytes = DqLayout<T, D, BQ, BK>::kBytes;
@@ -375,6 +707,33 @@ cudaError_t launch_dkv(const BwdParams& p, int batch, cudaStream_t stream) {
     return cudaGetLastError();
 }
 
+template <int D, int BQ, int STAGES>
+cudaError_t launch_dkv_wgmma(const BwdParams& p, int batch,
+                             cudaStream_t stream) {
+    using L = DkvWgmmaLayout<D, BQ, STAGES>;
+    CUtensorMap tm_q, tm_k, tm_v, tm_do;
+    cudaError_t err = flash_wgmma::encode_operand(
+        &tm_q, p.q, batch, p.heads, p.t, D, p.q_sb, p.q_sh, p.q_st, BQ);
+    if (err == cudaSuccess)
+        err = flash_wgmma::encode_operand(&tm_k, p.k, batch, p.heads, p.t, D,
+                                          p.k_sb, p.k_sh, p.k_st, L::kBK);
+    if (err == cudaSuccess)
+        err = flash_wgmma::encode_operand(&tm_v, p.v, batch, p.heads, p.t, D,
+                                          p.v_sb, p.v_sh, p.v_st, L::kBK);
+    if (err == cudaSuccess)
+        err = flash_wgmma::encode_operand(&tm_do, p.dout, batch, p.heads, p.t,
+                                          D, p.do_sb, p.do_sh, p.do_st, BQ);
+    if (err != cudaSuccess) return err;
+    auto kernel = flash_bwd_dkv_wgmma_kernel<__nv_bfloat16, D, BQ, STAGES>;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(p.t / L::kBK, batch * p.heads);
+    kernel<<<grid, flash_wgmma::kThreads, L::kBytes, stream>>>(
+        tm_q, tm_k, tm_v, tm_do, p);
+    return cudaGetLastError();
+}
+
 // Tiles, chosen so that ptxas spills nothing up to D = 128. dq (BQ queries
 // x BK keys; a thread holds dQ, D/2 registers, S and dP, BK/2 each, and the
 // products' fragments): float32 128 queries (8 warps) and 64-key tiles up to
@@ -382,13 +741,14 @@ cudaError_t launch_dkv(const BwdParams& p, int batch, cudaStream_t stream) {
 // bfloat16 the same at D = 32, else 64 queries (4 warps: two blocks share an
 // SM, which ran faster than 128 queries on an H100) with 64-key tiles at
 // D = 64 and 32-key tiles at D = 128 (64 keys spill there); at
-// D = 256 64 queries and 16-key tiles (float32: 195 KB). dkv (output
-// columns DO, BK keys x BQ queries; a thread holds dK and dV, D/2 registers
-// each, S^T and dP^T, BQ/2 each): 128 keys (8 warps) and 32-query tiles up to
-// D = 64; at D = 128 16-query tiles for float32, and two column halves of 64
-// with 32-query tiles for bfloat16 (whose fragments take more registers); at
-// D = 256 two column halves of 128, 64 keys and 16-query tiles (the float32
-// K, V and the Q/dO ring take 195 KB).
+// D = 256 64 queries and 16-key tiles (float32: 195 KB). dkv on mma.sync
+// (output columns DO, BK keys x BQ queries; a thread holds dK and dV, D/2
+// registers each, S^T and dP^T, BQ/2 each): 128 keys (8 warps) and 32-query
+// tiles up to D = 64, 16-query tiles for float32 at D = 128; at D = 256 two
+// column halves of 128, 64 keys and 16-query tiles (the float32 K, V and the
+// Q/dO ring take 195 KB). dkv on wgmma (bfloat16 at D = 64 and 128; 64 keys,
+// BQ queries, STAGES): (128, 3) at D = 64, (64, 4) at D = 128; larger query
+// tiles spill at D = 128, and 64-query tiles ran slower at D = 64.
 template <typename T>
 cudaError_t launch_for_d(const BwdParams& p, int batch, int d, bool dkv,
                          cudaStream_t stream) {
@@ -396,10 +756,14 @@ cudaError_t launch_for_d(const BwdParams& p, int batch, int d, bool dkv,
     if (dkv) {
         switch (d) {
             case 32: return launch_dkv<T, 32, 32, 128, 64>(p, batch, stream);
-            case 64: return launch_dkv<T, 64, 64, 128, 32>(p, batch, stream);
+            case 64:
+                if constexpr (kBf16)
+                    return launch_dkv_wgmma<64, 128, 3>(p, batch, stream);
+                else
+                    return launch_dkv<T, 64, 64, 128, 32>(p, batch, stream);
             case 128:
                 if constexpr (kBf16)
-                    return launch_dkv<T, 128, 64, 128, 32>(p, batch, stream);
+                    return launch_dkv_wgmma<128, 64, 4>(p, batch, stream);
                 else
                     return launch_dkv<T, 128, 128, 128, 16>(p, batch, stream);
             case 256:

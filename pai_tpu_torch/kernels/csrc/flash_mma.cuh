@@ -1,5 +1,8 @@
 // Warp-level tensor-core building blocks of the flash-attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu) for Hopper (sm_90a).
+// (flash_attention.cu, flash_attention_bwd.cu) for Hopper (sm_90a). The
+// forward and dkv in bfloat16 at D = 64 and 128 run on warpgroup wgmma
+// instead (flash_wgmma.cuh), and take split_bf16x2, store_rows and kPnKeys
+// from here.
 //
 // Every product is an `mma.sync` of one warp over 16 rows:
 //

@@ -8,14 +8,16 @@ per-row log-sum-exp of the logits, ``(B*H, T)`` float32, which the backward
 needs.
 
 * ``flash_attention(q, k, v, emit_lse=False)`` — on CUDA tensors launches
-  kernel ``flash_fwd`` (``csrc/flash_attention.cu::flash_fwd_kernel``), which
+  kernel ``flash_fwd`` (``csrc/flash_attention.cu``: ``flash_fwd_wgmma_kernel``
+  in bfloat16 at D = 64 and 128, ``flash_fwd_kernel`` otherwise), which
   replaces the TPU kernel ``pai_tpu/kernels/flash_attention.py::_fwd_kernel``
   (both of its instantiations); on CPU tensors takes the plain version. When
   a gradient is wanted it goes through ``FlashAttention``, as the JAX function
   goes through its ``custom_vjp``.
 * ``flash_attention_backward(q, k, v, o, lse, do)`` — ``(dq, dk, dv)``: on
   CUDA tensors launches kernels ``flash_bwd_dq`` and ``flash_bwd_dkv``
-  (``csrc/flash_attention_bwd.cu``), which replace ``_bwd_dq_kernel`` and
+  (``csrc/flash_attention_bwd.cu``; dkv as ``flash_bwd_dkv_wgmma_kernel`` in
+  bfloat16 at D = 64 and 128), which replace ``_bwd_dq_kernel`` and
   ``_bwd_dkv_kernel``; ``delta = rowsum(do * o)`` is one PyTorch op before
   them, as the JAX package computes it in XLA. On CPU tensors the plain
   version.
@@ -27,9 +29,13 @@ needs.
 
 Bound on an H100: operations — ``4*B*H*T*T*D`` forward, ``6*...`` for dq and
 ``8*...`` for dk and dv, against some ``4-8*B*H*T*D`` elements moved. All
-three kernels run on the tensor cores: bf16 ``mma`` for bfloat16 operands
-(989 TFLOP/s dense), 3xTF32 for float32 ones (float32 accuracy at up to a
-third of the 495 TFLOP/s TF32 rate). The kernels' designs are described at
+three kernels run on the tensor cores (989 TFLOP/s dense bf16; float32 as
+3xTF32, float32 accuracy at up to a third of the 495 TFLOP/s TF32 rate), by
+a route fixed by the operands' type and head dim in the sources'
+``launch_for_d``: the forward and dkv in bfloat16 at D = 64 and 128 on
+Hopper's warpgroup ``wgmma`` with TMA tile loads (``csrc/flash_wgmma.cuh``),
+everything else on warp-level ``mma.sync`` (``csrc/flash_mma.cuh``). No
+launch falls back to another route. The kernels' designs are described at
 the top of their ``.cu`` sources; measured times are in PERF.md.
 
 The wrappers take strided views (last dimension contiguous, the other strides
@@ -253,7 +259,7 @@ def _token_major(b: int, h: int, t: int, d: int, like: torch.Tensor
 def _takes_layout(x: torch.Tensor) -> bool:
     """Contiguous along D, the other strides whole 16-byte copies (4 float32
     or 8 bfloat16 elements), 16-byte aligned: what the kernels' cp.async
-    tile copies need."""
+    tile copies and TMA tensor maps need."""
     vec = 16 // x.element_size()
     return x.stride(3) == 1 and not any(s % vec for s in x.stride()[:3]) \
         and x.data_ptr() % 16 == 0
@@ -318,6 +324,8 @@ def prepare_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, x in (("q", q), ("k", k), ("v", v), ("do", do)):
         _check_strides(name, x)
     lse = lse.contiguous()
+    if lse.data_ptr() % 16:  # the dkv kernels copy lse rows 16 bytes at a time
+        lse = lse.clone()
     delta = _delta(o, do)
     dq, dk, dv = (_token_major(b, h, t, d, q) for _ in range(3))
     strides = (ctypes.c_longlong * 21)(*(
