@@ -337,41 +337,7 @@ template <int D, int BK, int STAGES> struct WgmmaLayout {
     static constexpr int kBar = kV + STAGES * kBoxes * kKvBox;
     // barriers: Q, then K full, V full and empty of each stage
     static constexpr int kBytes = kBar + 8 * (1 + 3 * STAGES) + 1024;
-    static constexpr uint32_t kTileBytes = BK * D * 2;
 };
-
-// The ring's barriers: Q, then K full, V full and empty of each stage.
-template <int STAGES> struct FwdBarriers {
-    uint32_t base;
-    __device__ uint32_t q() const { return base; }
-    __device__ uint32_t k(int s) const { return base + 8 * (1 + s); }
-    __device__ uint32_t v(int s) const { return base + 8 * (1 + STAGES + s); }
-    __device__ uint32_t empty(int s) const {
-        return base + 8 * (1 + 2 * STAGES + s);
-    }
-};
-
-// K and V of key tile `tile` into its ring stage (thread 0 only).
-template <int D, int BK, int STAGES>
-__device__ __forceinline__ void fwd_load_tile(const CUtensorMap* tm_k,
-                                              const CUtensorMap* tm_v,
-                                              uint32_t base,
-                                              FwdBarriers<STAGES> bar,
-                                              int tile, int h, int b) {
-    using L = WgmmaLayout<D, BK, STAGES>;
-    namespace fw = flash_wgmma;
-    const int s = tile % STAGES;
-    const uint32_t k_s = base + L::kK + s * L::kBoxes * L::kKvBox;
-    const uint32_t v_s = base + L::kV + s * L::kBoxes * L::kKvBox;
-    fw::mbar_expect_tx(bar.k(s), L::kTileBytes);
-    for (int box = 0; box < L::kBoxes; ++box)
-        fw::tma_load(k_s + box * L::kKvBox, tm_k, bar.k(s),
-                     box * fw::kBoxCols, tile * BK, h, b);
-    fw::mbar_expect_tx(bar.v(s), L::kTileBytes);
-    for (int box = 0; box < L::kBoxes; ++box)
-        fw::tma_load(v_s + box * L::kKvBox, tm_v, bar.v(s),
-                     box * fw::kBoxCols, tile * BK, h, b);
-}
 
 // A warpgroup: query rows 64 cw .. 64 cw + 63 of the tile.
 template <typename T, int D, int BK, int STAGES>
@@ -379,11 +345,11 @@ __device__ __forceinline__ void fwd_consume(const FlashParams& p,
                                             const CUtensorMap* tm_k,
                                             const CUtensorMap* tm_v,
                                             uint32_t base,
-                                            FwdBarriers<STAGES> bar, int bh,
-                                            int q0, int cw, int n_tiles) {
+                                            flash_wgmma::KvRing<STAGES> bar,
+                                            int bh, int q0, int cw,
+                                            int n_tiles) {
     using L = WgmmaLayout<D, BK, STAGES>;
     using MMA_S = flash_wgmma::Wgmma<BK>;
-    using MMA_O = flash_wgmma::Wgmma<flash_wgmma::kBoxCols>;
     namespace fw = flash_wgmma;
     constexpr int KT = BK / 8;   // 8-column tiles of S
     constexpr int DT = D / 8;    // 8-column tiles of O
@@ -399,7 +365,7 @@ __device__ __forceinline__ void fwd_consume(const FlashParams& p,
 #pragma unroll
         for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
 
-    fw::mbar_wait(bar.q(), 0);
+    fw::mbar_wait(bar.once(), 0);
     for (int tile = 0; tile < n_tiles; ++tile) {
         const int s = tile % STAGES;
         const uint32_t parity = (tile / STAGES) & 1;
@@ -411,8 +377,9 @@ __device__ __forceinline__ void fwd_consume(const FlashParams& p,
         if (threadIdx.x == 0 && tile > 0 && refill < n_tiles) {
             fw::mbar_wait(bar.empty((tile - 1) % STAGES),
                           ((tile - 1) / STAGES) & 1);
-            fwd_load_tile<D, BK, STAGES>(tm_k, tm_v, base, bar, refill,
-                                         bh % p.heads, bh / p.heads);
+            fw::load_kv_tile<D, BK, STAGES>(tm_k, tm_v, base + L::kK,
+                                            base + L::kV, bar, refill,
+                                            bh % p.heads, bh / p.heads);
         }
 
         // ---- S = Q K^T
@@ -438,51 +405,9 @@ __device__ __forceinline__ void fwd_consume(const FlashParams& p,
         for (int i = 0; i < KT / 2; ++i)
             fw::split_step(sc, i, p_hi[i], p_lo[i]);
 
-        // ---- O += P V: one partial of kPnKeys keys per 64-column box of V
-        // (four RS wgmmas into a fresh accumulator), two partials in flight;
-        // partial j is added to O once partial j + 1 has been issued
+        // ---- O += P V over this tile's keys, in partials of kPnKeys
         fw::mbar_wait(bar.v(s), parity);
-        constexpr int kSteps = flash_mma::kPnKeys / 16;
-        constexpr int kJobs = BK / flash_mma::kPnKeys * L::kBoxes;
-        float part[2][8][4];
-#pragma unroll
-        for (int j = 0; j <= kJobs; ++j) {
-            if (j < kJobs) {
-                const int x = j % L::kBoxes;
-                const int k0 = kSteps * (j / L::kBoxes);
-                fw::wgmma_fence();
-                // the small terms first: the tensor cores truncate as they
-                // accumulate, which costs a small term less while the
-                // partial is small too
-                MMA_O::rs_t_first(part[j & 1], p_lo[k0],
-                                  fw::mnmajor_desc(v_s + x * L::kKvBox,
-                                                   L::kKvBox, k0));
-#pragma unroll
-                for (int i = 1; i < kSteps; ++i)
-                    MMA_O::rs_t(part[j & 1], p_lo[k0 + i],
-                                fw::mnmajor_desc(v_s + x * L::kKvBox,
-                                                 L::kKvBox, k0 + i));
-#pragma unroll
-                for (int i = 0; i < kSteps; ++i)
-                    MMA_O::rs_t(part[j & 1], p_hi[k0 + i],
-                                fw::mnmajor_desc(v_s + x * L::kKvBox,
-                                                 L::kKvBox, k0 + i));
-                fw::wgmma_commit();
-            }
-            if (j > 0) {
-                if (j < kJobs)
-                    fw::wgmma_wait<1>();
-                else
-                    fw::wgmma_wait<0>();
-                const int x = (j - 1) % L::kBoxes;
-                fw::fence_regs(part[(j - 1) & 1]);
-#pragma unroll
-                for (int i = 0; i < 8; ++i)
-#pragma unroll
-                    for (int c = 0; c < 4; ++c)
-                        acc[8 * x + i][c] += part[(j - 1) & 1][i][c];
-            }
-        }
+        fw::add_partials<BK, L::kBoxes>(acc, p_hi, p_lo, v_s, L::kKvBox);
         __syncwarp();
         if (lane == 0) fw::mbar_arrive(bar.empty(s));
     }
@@ -502,13 +427,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     namespace fw = flash_wgmma;
     extern __shared__ unsigned char smem_raw[];
     const uint32_t base = smem_addr(fw::align_1024(smem_raw));
-    const FwdBarriers<STAGES> bar{base + L::kBar};
+    const fw::KvRing<STAGES> bar{base + L::kBar};
     const int bh = blockIdx.y;
     const int q0 = blockIdx.x * L::kBQ;
     const int n_tiles = p.t / BK;
 
     if (threadIdx.x == 0) {
-        fw::mbar_init(bar.q(), 1);
+        fw::mbar_init(bar.once(), 1);
         for (int s = 0; s < STAGES; ++s) {
             fw::mbar_init(bar.k(s), 1);
             fw::mbar_init(bar.v(s), 1);
@@ -520,12 +445,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (threadIdx.x == 0) {  // Q, and the first STAGES key tiles
         const int h = bh % p.heads;
         const int b = bh / p.heads;
-        fw::mbar_expect_tx(bar.q(), L::kBQ * D * 2);
+        fw::mbar_expect_tx(bar.once(), L::kBQ * D * 2);
         for (int box = 0; box < L::kBoxes; ++box)
-            fw::tma_load(base + L::kQ + box * L::kQBox, &tm_q, bar.q(),
+            fw::tma_load(base + L::kQ + box * L::kQBox, &tm_q, bar.once(),
                          box * fw::kBoxCols, q0, h, b);
         for (int tile = 0; tile < STAGES && tile < n_tiles; ++tile)
-            fwd_load_tile<D, BK, STAGES>(&tm_k, &tm_v, base, bar, tile, h, b);
+            fw::load_kv_tile<D, BK, STAGES>(&tm_k, &tm_v, base + L::kK,
+                                            base + L::kV, bar, tile, h, b);
     }
     fwd_consume<T, D, BK, STAGES>(p, &tm_k, &tm_v, base, bar, bh, q0,
                                   threadIdx.x >> 7, n_tiles);

@@ -9,7 +9,9 @@
 //
 //     P  = exp(s^2 Q K^T - lse)          (recomputed, never stored)
 //     dS = P * (dO V^T - delta)
-//     dQ = s^2 dS K                      flash_bwd_dq_kernel
+//     dQ = s^2 dS K                      flash_bwd_dq_kernel, and at bf16
+//                                        D = 64 and 128
+//                                        flash_bwd_dq_wgmma_kernel
 //     dV = P^T dO,  dK = s^2 dS^T Q      flash_bwd_dkv_kernel, and at bf16
 //                                        D = 64 and 128
 //                                        flash_bwd_dkv_wgmma_kernel
@@ -20,12 +22,12 @@
 // What bounds them on an H100: operations. dq does three products of
 // 2*T^2*D per head (6*B*H*T^2*D), dkv four (8*B*H*T^2*D), against some
 // 8*B*H*T*D elements moved. So every product of both kernels runs on the
-// tensor cores, P and dS (float32 values) as two bf16 terms: dkv in bfloat16
-// at D = 64 and D = 128 (the bf16-mixed Palette path's shapes) on Hopper's
-// warpgroup wgmma with TMA tile loads (flash_wgmma.cuh), everything else on
-// warp-level mma.sync (flash_mma.cuh): bf16 m16n8k16 for bfloat16 operands,
-// 3xTF32 m16n8k8 for float32 ones (float32 accuracy, never TF32 alone).
-// launch_for_d fixes the route by (dtype, D).
+// tensor cores, P and dS (float32 values) as two bf16 terms: both kernels in
+// bfloat16 at D = 64 and D = 128 (the bf16-mixed Palette path's shapes) on
+// Hopper's warpgroup wgmma with TMA tile loads (flash_wgmma.cuh), everything
+// else on warp-level mma.sync (flash_mma.cuh): bf16 m16n8k16 for bfloat16
+// operands, 3xTF32 m16n8k8 for float32 ones (float32 accuracy, never TF32
+// alone). launch_for_d fixes the route by (dtype, D).
 //
 // * Each output tile has exactly one writer, as on the TPU: dq's block owns
 //   one (batch*head, query tile) and loops over the K/V tiles; dkv's block
@@ -470,7 +472,6 @@ __device__ __forceinline__ void dkv_consume(const BwdParams& p,
                                             int k0, int wg, int n_tiles) {
     using L = DkvWgmmaLayout<D, BQ, STAGES>;
     using MMA_S = flash_wgmma::Wgmma<BQ>;
-    using MMA_O = flash_wgmma::Wgmma<flash_wgmma::kBoxCols>;
     namespace fw = flash_wgmma;
     constexpr int QT = BQ / 8;  // 8-column tiles of S^T (queries)
     const int tid = threadIdx.x & 127;
@@ -482,13 +483,11 @@ __device__ __forceinline__ void dkv_consume(const BwdParams& p,
     // dS^T by Q
     const uint32_t a_w = base + (wg == 0 ? L::kK : L::kV);
 
-    float acc[L::kBoxes][8][4];  // dV (warpgroup 0) or dK (warpgroup 1)
+    float acc[D / 8][4];  // dV (warpgroup 0) or dK (warpgroup 1)
 #pragma unroll
-    for (int x = 0; x < L::kBoxes; ++x)
+    for (int i = 0; i < D / 8; ++i)
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) acc[x][i][c] = 0.0f;
+        for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
 
     fw::mbar_wait(bar.kv(), 0);
     for (int tile = 0; tile < n_tiles; ++tile) {
@@ -568,51 +567,14 @@ __device__ __forceinline__ void dkv_consume(const BwdParams& p,
             fw::mbar_wait(bar.q(s), parity);  // Q, for dK
         }
 
-        // ---- dV += P^T dO or dK += dS^T Q: per 64-column box, one partial
-        // of kPnKeys queries each (four RS wgmmas into a fresh accumulator),
-        // two partials in flight
+        // ---- dV += P^T dO or dK += dS^T Q over this tile's queries, in
+        // partials of kPnKeys
         uint32_t a_hi[QT / 2][4], a_lo[QT / 2][4];
 #pragma unroll
         for (int i = 0; i < QT / 2; ++i)
             fw::split_step(sc, i, a_hi[i], a_lo[i]);
-        const uint32_t m_s = wg == 0 ? do_s : q_s;
-        constexpr int kSteps = flash_mma::kPnKeys / 16;
-        constexpr int kJobs = BQ / flash_mma::kPnKeys * L::kBoxes;
-        float part[2][8][4];
-#pragma unroll
-        for (int j = 0; j <= kJobs; ++j) {
-            if (j < kJobs) {
-                const int x = j % L::kBoxes;
-                const int q0 = kSteps * (j / L::kBoxes);
-                const uint32_t m_x = m_s + x * L::kQBox;
-                fw::wgmma_fence();
-                // the small terms first (as in the forward)
-                MMA_O::rs_t_first(part[j & 1], a_lo[q0],
-                                  fw::mnmajor_desc(m_x, L::kQBox, q0));
-#pragma unroll
-                for (int i = 1; i < kSteps; ++i)
-                    MMA_O::rs_t(part[j & 1], a_lo[q0 + i],
-                                fw::mnmajor_desc(m_x, L::kQBox, q0 + i));
-#pragma unroll
-                for (int i = 0; i < kSteps; ++i)
-                    MMA_O::rs_t(part[j & 1], a_hi[q0 + i],
-                                fw::mnmajor_desc(m_x, L::kQBox, q0 + i));
-                fw::wgmma_commit();
-            }
-            if (j > 0) {
-                if (j < kJobs)
-                    fw::wgmma_wait<1>();
-                else
-                    fw::wgmma_wait<0>();
-                const int x = (j - 1) % L::kBoxes;
-                fw::fence_regs(part[(j - 1) & 1]);
-#pragma unroll
-                for (int i = 0; i < 8; ++i)
-#pragma unroll
-                    for (int c = 0; c < 4; ++c)
-                        acc[x][i][c] += part[(j - 1) & 1][i][c];
-            }
-        }
+        fw::add_partials<BQ, L::kBoxes>(acc, a_hi, a_lo,
+                                        wg == 0 ? do_s : q_s, L::kQBox);
         __syncwarp();
         if (lane == 0) fw::mbar_arrive(bar.empty(s));
     }
@@ -626,10 +588,7 @@ __device__ __forceinline__ void dkv_consume(const BwdParams& p,
         : static_cast<T*>(p.dk) + b * p.dk_sb + h * p.dk_sh + row0 * p.dk_st;
     const long long stride = wg == 0 ? p.dv_st : p.dk_st;
     const float scale = wg == 0 ? 1.0f : p.grad_scale;
-#pragma unroll
-    for (int x = 0; x < L::kBoxes; ++x)
-        flash_mma::store_rows<T, 8>(out + x * fw::kBoxCols, stride, acc[x],
-                                    scale, scale, lane);
+    flash_mma::store_rows<T, D / 8>(out, stride, acc, scale, scale, lane);
 }
 
 template <typename T, int D, int BQ, int STAGES>
@@ -680,6 +639,216 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     dkv_consume<T, D, BQ, STAGES>(p, &tm_q, &tm_do, smem, bar, bh, k0,
                                   threadIdx.x >> 7, n_tiles);
+}
+
+// -------------------------------------------------------- dQ: wgmma route
+// bfloat16 at D = 64 and D = 128 (flash_wgmma.cuh); replaces the TPU kernel
+// _bwd_dq_kernel (pai_tpu/kernels/flash_attention.py, pallas_call at :290)
+// on the bf16-mixed Palette path's shapes. The forward's shape
+// (flash_attention.cu, flash_fwd_wgmma_kernel) with one more product and no
+// online softmax: one block of two warpgroups owns one (batch*head,
+// 128-row query tile), 64 query rows per warpgroup. Thread 0 loads Q and dO
+// once and the K and V tiles (BK keys) into a ring of STAGES stages by TMA,
+// K and V each on their own `full` barrier; at the start of key tile i it
+// refills the stage of tile i - 1 once that stage's `empty` barrier says
+// both warpgroups are done with it. Each thread holds lse (in log2 units)
+// and delta of its rows g and g + 8 in registers for the whole loop, and its
+// D/2 floats of dQ from the first tile to the last. Per key tile a
+// warpgroup
+//   * issues S = Q K^T and dP = dO V^T as two groups of BK-wide SS wgmmas
+//     (K and V read K-major, D/16 steps each), both in flight at once;
+//   * forms P = exp2(s^2 log2(e) S - lse log2(e)) in S's accumulators while
+//     dP's wgmmas run, then dS = P (dP - delta) in dP's;
+//   * adds dS K into dQ in partials of 32 keys (kPnKeys) per 64-column box
+//     of K: each a fresh float32 accumulator of four RS wgmmas (dS's two lo
+//     terms first, then the two hi terms, as A fragments from registers; K
+//     read MN-major from the same 128-byte-swizzled boxes that fed S, so K
+//     is loaded once), added to dQ with an ordinary float32 add while the
+//     next partial runs (two in flight);
+//   * arrives on the stage's `empty` barrier (one arrival per warp).
+// lse and delta are taken as given (a ring's hop passes a global lse). The
+// epilogue writes dQ s^2 through dq's strides.
+// What bounds it: the tensor cores run four products' worth a tile (S, dP,
+// and dS K twice, for hi and lo) where the bound counts three; besides them
+// some twelve CUDA-core instructions per element of S (the exponential, dS,
+// the hi/lo split, the partial adds: 2 D / 32 of them), which a warpgroup
+// overlaps only with its own dP wgmmas and with the other warpgroup's.
+// Tiles (BK, STAGES): D = 64 (128, 3), 240 registers; D = 128 (64, 3), 228
+// registers; no spill. Tried and dropped (tools/flash_dq_tiles.py times
+// other tiles; PERF.md): 64-key tiles at D = 64 (slower), four stages at
+// D = 128 (no faster), 128-key tiles at D = 128 (spill); and the products
+// split across the warpgroups as dkv splits them (warpgroup 0 S and P, P
+// through shared memory to warpgroup 1's dP, dS and dQ; 64 query rows a
+// block), slower at both head dims: warpgroup 1 then runs three of the
+// four products' worth of tensor work alone.
+template <int D, int BK, int STAGES> struct DqWgmmaLayout {
+    static constexpr int kBQ = 128;
+    static constexpr int kBoxes = D / flash_wgmma::kBoxCols;
+    static constexpr int kQBox = kBQ * flash_wgmma::kRowBytes;  // bytes
+    static constexpr int kKvBox = BK * flash_wgmma::kRowBytes;
+    static constexpr int kQ = 0;
+    static constexpr int kDo = kQ + kBoxes * kQBox;
+    static constexpr int kK = kDo + kBoxes * kQBox;
+    static constexpr int kV = kK + STAGES * kBoxes * kKvBox;
+    static constexpr int kBar = kV + STAGES * kBoxes * kKvBox;
+    // barriers: Q and dO, then K full, V full and empty of each stage
+    static constexpr int kBytes = kBar + 8 * (1 + 3 * STAGES) + 1024;
+};
+
+// A warpgroup: query rows 64 cw .. 64 cw + 63 of the tile.
+template <typename T, int D, int BK, int STAGES>
+__device__ __forceinline__ void dq_consume(const BwdParams& p,
+                                           const CUtensorMap* tm_k,
+                                           const CUtensorMap* tm_v,
+                                           uint32_t base,
+                                           flash_wgmma::KvRing<STAGES> bar,
+                                           int bh, int q0, int cw,
+                                           int n_tiles) {
+    using L = DqWgmmaLayout<D, BK, STAGES>;
+    using MMA_S = flash_wgmma::Wgmma<BK>;
+    namespace fw = flash_wgmma;
+    constexpr int KT = BK / 8;   // 8-column tiles of S and dP (keys)
+    constexpr int DT = D / 8;    // 8-column tiles of dQ
+    const int lane = threadIdx.x & 31;
+    const int warp = (threadIdx.x >> 5) & 3;  // within the warpgroup
+    const int b = bh / p.heads;
+    const int h = bh % p.heads;
+    const int row0 = q0 + 64 * cw + 16 * warp;  // the warp's first query row
+    const uint32_t q_w = base + L::kQ + cw * 64 * fw::kRowBytes;
+    const uint32_t do_w = base + L::kDo + cw * 64 * fw::kRowBytes;
+
+    // lse (in log2 units) and delta of this thread's rows g and g + 8
+    const long long row = static_cast<long long>(bh) * p.t + row0
+        + (lane >> 2);
+    const float lse2[2] = {p.lse[row] * kLog2e, p.lse[row + 8] * kLog2e};
+    const float dlt[2] = {p.delta[row], p.delta[row + 8]};
+
+    float acc[DT][4];
+#pragma unroll
+    for (int i = 0; i < DT; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
+
+    fw::mbar_wait(bar.once(), 0);
+    for (int tile = 0; tile < n_tiles; ++tile) {
+        const int s = tile % STAGES;
+        const uint32_t parity = (tile / STAGES) & 1;
+        const uint32_t k_s = base + L::kK + s * L::kBoxes * L::kKvBox;
+        const uint32_t v_s = base + L::kV + s * L::kBoxes * L::kKvBox;
+        // thread 0 refills the stage of the tile before, once both
+        // warpgroups are done with it
+        const int refill = tile - 1 + STAGES;
+        if (threadIdx.x == 0 && tile > 0 && refill < n_tiles) {
+            fw::mbar_wait(bar.empty((tile - 1) % STAGES),
+                          ((tile - 1) / STAGES) & 1);
+            fw::load_kv_tile<D, BK, STAGES>(tm_k, tm_v, base + L::kK,
+                                            base + L::kV, bar, refill, h, b);
+        }
+
+        // ---- S = Q K^T and dP = dO V^T: rows queries, columns keys; two
+        // groups in flight
+        const uint32_t q_t = fw::opaque(q_w);
+        const uint32_t do_t = fw::opaque(do_w);
+        float sc[KT][4], dp[KT][4];
+        fw::mbar_wait(bar.k(s), parity);
+        fw::wgmma_fence();
+        MMA_S::ss_first(sc, fw::kmajor_desc(q_t, L::kQBox, 0),
+                        fw::kmajor_desc(k_s, L::kKvBox, 0));
+#pragma unroll
+        for (int kk = 1; kk < D / 16; ++kk)
+            MMA_S::ss(sc, fw::kmajor_desc(q_t, L::kQBox, kk),
+                      fw::kmajor_desc(k_s, L::kKvBox, kk));
+        fw::wgmma_commit();
+        fw::mbar_wait(bar.v(s), parity);
+        fw::wgmma_fence();
+        MMA_S::ss_first(dp, fw::kmajor_desc(do_t, L::kQBox, 0),
+                        fw::kmajor_desc(v_s, L::kKvBox, 0));
+#pragma unroll
+        for (int kk = 1; kk < D / 16; ++kk)
+            MMA_S::ss(dp, fw::kmajor_desc(do_t, L::kQBox, kk),
+                      fw::kmajor_desc(v_s, L::kKvBox, kk));
+        fw::wgmma_commit();
+
+        // ---- P = exp2(s^2 log2(e) S - lse log2(e)) while dP runs, then
+        // dS = P (dP - delta); element c of a tile is row g + 8 (c >> 1)
+        fw::wgmma_wait<1>();
+        fw::fence_regs(sc);
+#pragma unroll
+        for (int j = 0; j < KT; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+                sc[j][c] = fw::exp2_ftz(fmaf(sc[j][c], p.logit_scale,
+                                             -lse2[c >> 1]));
+        fw::wgmma_wait<0>();
+        fw::fence_regs(dp);
+#pragma unroll
+        for (int j = 0; j < KT; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+                dp[j][c] = sc[j][c] * (dp[j][c] - dlt[c >> 1]);
+
+        // ---- dS as hi and lo bf16 A fragments, 16 keys a step
+        uint32_t a_hi[KT / 2][4], a_lo[KT / 2][4];
+#pragma unroll
+        for (int i = 0; i < KT / 2; ++i)
+            fw::split_step(dp, i, a_hi[i], a_lo[i]);
+
+        // ---- dQ += dS K over this tile's keys, in partials of kPnKeys (K
+        // read MN-major from the tile that fed S)
+        fw::add_partials<BK, L::kBoxes>(acc, a_hi, a_lo, k_s, L::kKvBox);
+        __syncwarp();
+        if (lane == 0) fw::mbar_arrive(bar.empty(s));
+    }
+
+    T* dq_g = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh
+        + static_cast<long long>(row0) * p.dq_st;
+    flash_mma::store_rows<T, DT>(dq_g, p.dq_st, acc, p.grad_scale,
+                                 p.grad_scale, lane);
+}
+
+template <typename T, int D, int BK, int STAGES>
+__global__ void __launch_bounds__(flash_wgmma::kThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const BwdParams p) {
+    static_assert(sizeof(T) == 2, "the wgmma route takes bfloat16");
+    using L = DqWgmmaLayout<D, BK, STAGES>;
+    namespace fw = flash_wgmma;
+    extern __shared__ unsigned char smem_raw[];
+    const uint32_t base = smem_addr(fw::align_1024(smem_raw));
+    const fw::KvRing<STAGES> bar{base + L::kBar};
+    const int bh = blockIdx.y;
+    const int q0 = blockIdx.x * L::kBQ;
+    const int n_tiles = p.t / BK;
+
+    if (threadIdx.x == 0) {
+        fw::mbar_init(bar.once(), 1);
+        for (int s = 0; s < STAGES; ++s) {
+            fw::mbar_init(bar.k(s), 1);
+            fw::mbar_init(bar.v(s), 1);
+            fw::mbar_init(bar.empty(s), 8);  // every warp
+        }
+        fw::fence_barrier_init();
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {  // Q and dO, and the first STAGES key tiles
+        const int h = bh % p.heads;
+        const int b = bh / p.heads;
+        fw::mbar_expect_tx(bar.once(), 2 * L::kBQ * D * 2);
+        for (int box = 0; box < L::kBoxes; ++box) {
+            fw::tma_load(base + L::kQ + box * L::kQBox, &tm_q, bar.once(),
+                         box * fw::kBoxCols, q0, h, b);
+            fw::tma_load(base + L::kDo + box * L::kQBox, &tm_do, bar.once(),
+                         box * fw::kBoxCols, q0, h, b);
+        }
+        for (int tile = 0; tile < STAGES && tile < n_tiles; ++tile)
+            fw::load_kv_tile<D, BK, STAGES>(&tm_k, &tm_v, base + L::kK,
+                                            base + L::kV, bar, tile, h, b);
+    }
+    dq_consume<T, D, BK, STAGES>(p, &tm_k, &tm_v, base, bar, bh, q0,
+                                 threadIdx.x >> 7, n_tiles);
 }
 
 template <typename T, int D, int BQ, int BK>
@@ -734,14 +903,41 @@ cudaError_t launch_dkv_wgmma(const BwdParams& p, int batch,
     return cudaGetLastError();
 }
 
+template <int D, int BK, int STAGES>
+cudaError_t launch_dq_wgmma(const BwdParams& p, int batch,
+                            cudaStream_t stream) {
+    using L = DqWgmmaLayout<D, BK, STAGES>;
+    CUtensorMap tm_q, tm_k, tm_v, tm_do;
+    cudaError_t err = flash_wgmma::encode_operand(
+        &tm_q, p.q, batch, p.heads, p.t, D, p.q_sb, p.q_sh, p.q_st, L::kBQ);
+    if (err == cudaSuccess)
+        err = flash_wgmma::encode_operand(&tm_k, p.k, batch, p.heads, p.t, D,
+                                          p.k_sb, p.k_sh, p.k_st, BK);
+    if (err == cudaSuccess)
+        err = flash_wgmma::encode_operand(&tm_v, p.v, batch, p.heads, p.t, D,
+                                          p.v_sb, p.v_sh, p.v_st, BK);
+    if (err == cudaSuccess)
+        err = flash_wgmma::encode_operand(&tm_do, p.dout, batch, p.heads, p.t,
+                                          D, p.do_sb, p.do_sh, p.do_st,
+                                          L::kBQ);
+    if (err != cudaSuccess) return err;
+    auto kernel = flash_bwd_dq_wgmma_kernel<__nv_bfloat16, D, BK, STAGES>;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(p.t / L::kBQ, batch * p.heads);
+    kernel<<<grid, flash_wgmma::kThreads, L::kBytes, stream>>>(
+        tm_q, tm_k, tm_v, tm_do, p);
+    return cudaGetLastError();
+}
+
 // Tiles, chosen so that ptxas spills nothing up to D = 128. dq (BQ queries
 // x BK keys; a thread holds dQ, D/2 registers, S and dP, BK/2 each, and the
 // products' fragments): float32 128 queries (8 warps) and 64-key tiles up to
 // D = 64, 32-key tiles at D = 128 (Q, dO and the K/V ring then take 198 KB);
-// bfloat16 the same at D = 32, else 64 queries (4 warps: two blocks share an
-// SM, which ran faster than 128 queries on an H100) with 64-key tiles at
-// D = 64 and 32-key tiles at D = 128 (64 keys spill there); at
-// D = 256 64 queries and 16-key tiles (float32: 195 KB). dkv on mma.sync
+// bfloat16 the same at D = 32, and at D = 256 64 queries and 16-key tiles
+// (float32: 195 KB). dq on wgmma (bfloat16 at D = 64 and 128; 128 queries,
+// BK keys, STAGES): (128, 3) at D = 64, (64, 3) at D = 128. dkv on mma.sync
 // (output columns DO, BK keys x BQ queries; a thread holds dK and dV, D/2
 // registers each, S^T and dP^T, BQ/2 each): 128 keys (8 warps) and 32-query
 // tiles up to D = 64, 16-query tiles for float32 at D = 128; at D = 256 two
@@ -775,12 +971,12 @@ cudaError_t launch_for_d(const BwdParams& p, int batch, int d, bool dkv,
         case 32: return launch_dq<T, 32, 128, 64>(p, batch, stream);
         case 64:
             if constexpr (kBf16)
-                return launch_dq<T, 64, 64, 64>(p, batch, stream);
+                return launch_dq_wgmma<64, 128, 3>(p, batch, stream);
             else
                 return launch_dq<T, 64, 128, 64>(p, batch, stream);
         case 128:
             if constexpr (kBf16)
-                return launch_dq<T, 128, 64, 32>(p, batch, stream);
+                return launch_dq_wgmma<128, 64, 3>(p, batch, stream);
             else
                 return launch_dq<T, 128, 128, 32>(p, batch, stream);
         case 256: return launch_dq<T, 256, 64, 16>(p, batch, stream);

@@ -1,8 +1,9 @@
 // Hopper building blocks of the bfloat16 flash-attention kernels at D = 64
 // and D = 128 (flash_attention.cu::flash_fwd_wgmma_kernel,
-// flash_attention_bwd.cu::flash_bwd_dkv_wgmma_kernel): warpgroup matrix
-// multiplies (wgmma), tile loads by the Tensor Memory Accelerator (TMA) and
-// the mbarriers that join them. sm_90a only (wgmma).
+// flash_attention_bwd.cu::flash_bwd_dq_wgmma_kernel and
+// flash_bwd_dkv_wgmma_kernel): warpgroup matrix multiplies (wgmma), tile
+// loads by the Tensor Memory Accelerator (TMA) and the mbarriers that join
+// them. sm_90a only (wgmma).
 //
 // * Tiles are loaded by TMA, in boxes of 64 columns (128 bytes of bf16) and
 //   up to 256 rows, from a 4-D tensor map (columns, rows, heads, batch) that
@@ -18,8 +19,8 @@
 // * wgmma reads such a tile through a shared-memory descriptor with the same
 //   128-byte swizzle: K-major (the reduced dimension along the row: Q, K
 //   for S = Q K^T) with 8-row groups 1024 bytes apart, a step of 16 columns
-//   adding 32 bytes to the start address; MN-major (V in P V, read
-//   transposed), 16 rows a step (2048 bytes), the second 64-column box
+//   adding 32 bytes to the start address; MN-major (V in P V, K in dS K,
+//   read transposed), 16 rows a step (2048 bytes), the second 64-column box
 //   `lbo` bytes further.
 // * The float32 accumulators of m64nNk16 lie in each warp of the warpgroup
 //   as the C fragments of mma.sync m16n8 lie (flash_mma.cuh): warp w holds
@@ -39,7 +40,9 @@
 //   the loading thread, which set the expected bytes) and `empty` once every
 //   warp has waited for the wgmma that read it (one arrival per warp). A
 //   wait that has not ended after some 2^35 cycles (seconds) traps: a
-//   broken pipeline ends the launch with an error instead of hanging.
+//   broken pipeline ends the launch with an error instead of hanging. The
+//   forward and dq share the K/V ring (KvRing, load_kv_tile); all three
+//   kernels sum their RS products over the long axis in add_partials.
 
 #pragma once
 
@@ -363,6 +366,93 @@ template <> struct Wgmma<128> {
             : "l"(desc_a), "l"(desc_b), "r"(1));
     }
 };
+
+// acc += A B, summed over ROWS rows of B (keys, or queries in dkv): A as hi
+// and lo bf16 fragments of 16 rows a step (split_step), B a tile of BOXES
+// 64-column boxes `box_bytes` apart read MN-major, acc its BOXES x 64
+// float32 columns. The sum runs in partials of kPnKeys rows per box, each
+// a fresh accumulator of four RS wgmmas (the two lo terms first: the tensor
+// cores truncate as they accumulate, which costs a small term less while
+// the partial is small too), added to acc with a float32 add once the next
+// partial has been issued (two in flight). Every wgmma of the warpgroup has
+// completed on return.
+template <int ROWS, int BOXES>
+__device__ __forceinline__ void add_partials(
+    float (&acc)[8 * BOXES][4], const uint32_t (&hi)[ROWS / 16][4],
+    const uint32_t (&lo)[ROWS / 16][4], uint32_t b_tile, int box_bytes) {
+    using MMA = Wgmma<kBoxCols>;
+    constexpr int kSteps = flash_mma::kPnKeys / 16;
+    constexpr int kJobs = ROWS / flash_mma::kPnKeys * BOXES;
+    float part[2][8][4];
+#pragma unroll
+    for (int j = 0; j <= kJobs; ++j) {
+        if (j < kJobs) {
+            const int x = j % BOXES;
+            const int k0 = kSteps * (j / BOXES);
+            const uint32_t b_x = b_tile + x * box_bytes;
+            wgmma_fence();
+            MMA::rs_t_first(part[j & 1], lo[k0],
+                            mnmajor_desc(b_x, box_bytes, k0));
+#pragma unroll
+            for (int i = 1; i < kSteps; ++i)
+                MMA::rs_t(part[j & 1], lo[k0 + i],
+                          mnmajor_desc(b_x, box_bytes, k0 + i));
+#pragma unroll
+            for (int i = 0; i < kSteps; ++i)
+                MMA::rs_t(part[j & 1], hi[k0 + i],
+                          mnmajor_desc(b_x, box_bytes, k0 + i));
+            wgmma_commit();
+        }
+        if (j > 0) {
+            if (j < kJobs)
+                wgmma_wait<1>();
+            else
+                wgmma_wait<0>();
+            const int x = (j - 1) % BOXES;
+            fence_regs(part[(j - 1) & 1]);
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+#pragma unroll
+                for (int c = 0; c < 4; ++c)
+                    acc[8 * x + i][c] += part[(j - 1) & 1][i][c];
+        }
+    }
+}
+
+// ------------------------------------------------------------- K/V ring
+// The barriers of a block that loads its own tiles once (`once`) and
+// streams BK-row K and V tiles through a ring of STAGES stages, each with a
+// K `full`, a V `full` and an `empty` barrier (the forward and dq).
+template <int STAGES> struct KvRing {
+    uint32_t base;
+    __device__ uint32_t once() const { return base; }
+    __device__ uint32_t k(int s) const { return base + 8 * (1 + s); }
+    __device__ uint32_t v(int s) const { return base + 8 * (1 + STAGES + s); }
+    __device__ uint32_t empty(int s) const {
+        return base + 8 * (1 + 2 * STAGES + s);
+    }
+};
+
+// K and V of key tile `tile` into its ring stage, the rings' stage 0 at
+// k_ring and v_ring, a stage D/64 boxes of BK rows (thread 0 only).
+template <int D, int BK, int STAGES>
+__device__ __forceinline__ void load_kv_tile(const CUtensorMap* tm_k,
+                                             const CUtensorMap* tm_v,
+                                             uint32_t k_ring, uint32_t v_ring,
+                                             KvRing<STAGES> bar, int tile,
+                                             int h, int b) {
+    constexpr int kBox = BK * kRowBytes;
+    constexpr int kStage = D / kBoxCols * kBox;
+    const int s = tile % STAGES;
+    mbar_expect_tx(bar.k(s), BK * D * 2);
+    for (int box = 0; box < D / kBoxCols; ++box)
+        tma_load(k_ring + s * kStage + box * kBox, tm_k, bar.k(s),
+                 box * kBoxCols, tile * BK, h, b);
+    mbar_expect_tx(bar.v(s), BK * D * 2);
+    for (int box = 0; box < D / kBoxCols; ++box)
+        tma_load(v_ring + s * kStage + box * kBox, tm_v, bar.v(s),
+                 box * kBoxCols, tile * BK, h, b);
+}
 
 // ------------------------------------------------------------------ host
 using EncodeTiledFn = CUresult (*)(

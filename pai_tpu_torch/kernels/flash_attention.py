@@ -16,11 +16,12 @@ needs.
   goes through its ``custom_vjp``.
 * ``flash_attention_backward(q, k, v, o, lse, do)`` — ``(dq, dk, dv)``: on
   CUDA tensors launches kernels ``flash_bwd_dq`` and ``flash_bwd_dkv``
-  (``csrc/flash_attention_bwd.cu``; dkv as ``flash_bwd_dkv_wgmma_kernel`` in
-  bfloat16 at D = 64 and 128), which replace ``_bwd_dq_kernel`` and
-  ``_bwd_dkv_kernel``; ``delta = rowsum(do * o)`` is one PyTorch op before
-  them, as the JAX package computes it in XLA. On CPU tensors the plain
-  version.
+  (``csrc/flash_attention_bwd.cu``; as ``flash_bwd_dq_wgmma_kernel`` and
+  ``flash_bwd_dkv_wgmma_kernel`` in bfloat16 at D = 64 and 128, else
+  ``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel``), which replace
+  ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``; ``delta = rowsum(do * o)`` is
+  one PyTorch op before them, as the JAX package computes it in XLA. On CPU
+  tensors the plain version.
 * ``flash_attention_plain`` / ``flash_attention_backward_plain`` — the same
   functions as blockwise PyTorch (``pai_tpu/ops/attention.py::
   _blockwise_attention`` and ``_flash_backward``'s formulas): the oracles the
@@ -32,8 +33,8 @@ Bound on an H100: operations — ``4*B*H*T*T*D`` forward, ``6*...`` for dq and
 three kernels run on the tensor cores (989 TFLOP/s dense bf16; float32 as
 3xTF32, float32 accuracy at up to a third of the 495 TFLOP/s TF32 rate), by
 a route fixed by the operands' type and head dim in the sources'
-``launch_for_d``: the forward and dkv in bfloat16 at D = 64 and 128 on
-Hopper's warpgroup ``wgmma`` with TMA tile loads (``csrc/flash_wgmma.cuh``),
+``launch_for_d``: all three in bfloat16 at D = 64 and 128 on Hopper's
+warpgroup ``wgmma`` with TMA tile loads (``csrc/flash_wgmma.cuh``),
 everything else on warp-level ``mma.sync`` (``csrc/flash_mma.cuh``). No
 launch falls back to another route. The kernels' designs are described at
 the top of their ``.cu`` sources; measured times are in PERF.md.
