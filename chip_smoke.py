@@ -156,6 +156,29 @@ printing one JSON line:
    cuDNN deterministic in both); peak memory per rank.
    ``--fsdp`` with 2 ranks is not run here (FSDP2 over gloo on CUDA tensors
    ends the process; a line says so); the CPU tests hold it.
+13. ``graphs`` — the CUDA graphs, with cuDNN deterministic on both sides of
+   every comparison. Through ``pai_tpu_torch.main`` at the published widths,
+   batch 8, 80 pairs (10 steps per epoch), with ``--ema``: Pix2Pix GAN at
+   ``--precision 32`` with ``--dropout 0.5`` (the literal double forward,
+   its masks drawn in the graph) and at bf16-mixed (also ``--scan-steps
+   10``), 20 steps, and the attention U-Net with ``--loss-type ssim`` at
+   bf16-mixed, 10 steps, each with ``--scan-steps 5`` against 1: every
+   tensor of the last slot (parameters, running statistics, Adam's moments
+   and counts, the EMA) bit-equal, the CSV rows equal, the launch counts
+   equal (``ssim_scalar`` > 0); per side the enqueue and CUDA-event ms per
+   step from the second chunk on, peak memory, the graph's capture and
+   instantiate seconds and pool bytes, and the device busy time per step
+   over one profiled chunk (Palette's is not read here). Palette at the CLI
+   defaults, bf16-mixed, batch 4, with the EMA: 10 steps as chunks of
+   ``TrainScan`` and an ordinary step against 10 ordinary steps, bit-equal,
+   the flash launches per step equal. Its UNet's 100-step chain at batch 2
+   with the report's frames through ``reporting.palette_predictor`` (one
+   graph, recorded at the first call and replayed at the second) against
+   ``diffusion.sampler.ddpm_loop``: ``y_0`` and the frames bit-equal, the
+   launches equal (the recording call's plus one warm-up UNet evaluation),
+   the generator left at the same offset, seconds per chain. One ``flash_fwd``, and one dq and dkv, recorded alone in a graph:
+   bit-equal to the eager launch and within the flash gates of the plain
+   version.
 
 Then one line ``{"kernels": [...]}`` with, per kernel, its route, source, the
 TPU kernel it replaces, its launches in phase 3, its error against the plain
@@ -1322,16 +1345,20 @@ def phase_palette(device, workdir):
     peak_bytes = torch.cuda.max_memory_allocated()
     # ---- end of the counted window -----------------------------------
 
-    forwards_report = SAMPLING_STEPS * n_batches + 1  # + the FLOP probe
+    # + the FLOP probe, + one warm-up UNet evaluation where the chain's
+    # CUDA graph is recorded (the report's batches share one graph; the
+    # API's batch of one records its own)
+    forwards_report = SAMPLING_STEPS * n_batches + 1 + 1
+    forwards_api = SAMPLING_STEPS + 1
     check(launches_report["flash_fwd"]
           == FLASH_LAUNCHES_PER_FORWARD * forwards_report,
           f"flash_fwd launched {launches_report['flash_fwd']} times in the "
           f"report, expected {FLASH_LAUNCHES_PER_FORWARD} x {forwards_report}")
     check(launches["flash_fwd"] == FLASH_LAUNCHES_PER_FORWARD
-          * (forwards_report + SAMPLING_STEPS),
+          * (forwards_report + forwards_api),
           f"flash_fwd launched {launches['flash_fwd']} times on the Palette "
           f"path, expected {FLASH_LAUNCHES_PER_FORWARD} x "
-          f"{forwards_report + SAMPLING_STEPS}")
+          f"{forwards_report + forwards_api}")
     check(launches["ssim_map"] == SSIM_MAP_LAUNCHES_PER_BATCH * n_batches,
           f"ssim_map launched {launches['ssim_map']} times, expected "
           f"{SSIM_MAP_LAUNCHES_PER_BATCH} x {n_batches}")
@@ -4375,6 +4402,436 @@ def phase_parallel(device, workdir):
     return {"ring": ring_launches, "palette_sp2": launches}
 
 
+# ---------------------------------------------------------------- graphs
+GRAPH_K = 5
+# 80 pairs at batch 8: 10 steps per epoch, so two chunks of K = 5 (one of
+# K = 10) per epoch; 20 steps of Pix2Pix, 10 of the attention U-Net
+GRAPH_IMAGES, GRAPH_BATCH = 80, 8
+GRAPH_PIX2PIX_EPOCHS, GRAPH_ATTENTION_EPOCHS = 2, 1
+GRAPH_PALETTE_BATCH, GRAPH_PALETTE_STEPS = 4, 10
+GRAPH_CHAIN_BATCH = 2
+# one captured launch each, at the bf16-mixed Palette path's shapes
+GRAPH_FLASH_SHAPES = {"forward": (2, 4, 16384, 64),
+                      "backward": (4, 4, 4096, 128)}
+
+
+def record_train_calls(steps_lib):
+    """Patch ``TrainStep`` and ``TrainScan`` so that every outermost call
+    is recorded: its kind, first step and step count, its host time and a
+    CUDA event before and after it. Returns (calls, restore)."""
+    calls, depth = [], [0]
+    real = {cls: cls.__call__ for cls in (steps_lib.TrainStep,
+                                          steps_lib.TrainScan)}
+
+    def wrap(cls):
+        def call(self, state, *args, **kwargs):
+            if depth[0]:
+                return real[cls](self, state, *args, **kwargs)
+            depth[0] += 1
+            first = state.step
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            host = time.perf_counter()
+            out = real[cls](self, state, *args, **kwargs)
+            host_ms = (time.perf_counter() - host) * 1e3
+            end.record()
+            depth[0] -= 1
+            calls.append({"scan": cls is steps_lib.TrainScan, "obj": self,
+                          "state": out[0], "first": first,
+                          "steps": out[0].step - first, "host_ms": host_ms,
+                          "start": start, "end": end})
+            return out
+        return call
+
+    for cls in real:
+        cls.__call__ = wrap(cls)
+
+    def restore():
+        for cls, fn in real.items():
+            cls.__call__ = fn
+    return calls, restore
+
+
+def window_figures(calls, first_step):
+    """Per-step host enqueue ms and CUDA-event ms over the calls from step
+    ``first_step`` to the run's end (synchronised here)."""
+    torch.cuda.synchronize()
+    window = [c for c in calls if c["first"] >= first_step]
+    steps = sum(c["steps"] for c in window)
+    return {"steps": steps,
+            "enqueue_ms_per_step": sum(c["host_ms"] for c in window) / steps,
+            "event_ms_per_step": window[0]["start"].elapsed_time(
+                window[-1]["end"]) / steps}
+
+
+def graph_cli_run(workdir, tag, argv, k):
+    """``pai_tpu_torch.main`` with ``--scan-steps k`` in this process, the
+    kernels' launch counts set to 0 just before and read just after: the
+    run's last slot (cloned on the card, not written), its CSV, the
+    recorded calls, the scan's graph figures and the peak memory."""
+    from pai_tpu_torch import kernels
+    from pai_tpu_torch import main as train_main
+    from pai_tpu_torch.train import steps as steps_lib
+    from pai_tpu_torch.utils import checkpoint as ckpt_lib
+
+    slots = {}
+    real_write = ckpt_lib._write_slot
+
+    def keep_slot(slot_dir, flat, meta):
+        slots[os.path.basename(slot_dir)] = (
+            {key: v.detach().clone() for key, v in flat.items()}, dict(meta))
+        return slot_dir
+
+    logs = os.path.join(workdir, f"logs_{tag}_k{k}")
+    calls, restore = record_train_calls(steps_lib)
+    ckpt_lib._write_slot = keep_slot
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        start = time.perf_counter()
+        summary = train_main.main(argv + [
+            "--scan-steps", str(k), "--log-dir", logs,
+            "--ckpt-dir", os.path.join(workdir, f"ckpt_{tag}_k{k}")])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = dict(kernels.launch_counts)
+    finally:
+        ckpt_lib._write_slot = real_write
+        restore()
+    with open(os.path.join(logs, "smoke", "version_0", "metrics.csv")) as f:
+        csv_text = f.read()
+    scans = [c["obj"] for c in calls if c["scan"]]
+    graph = scans[-1].graph.stats() if scans else None
+    return {"summary": summary, "slot": slots["last"][0], "csv": csv_text,
+            "calls": calls, "launches": launches, "seconds": seconds,
+            "graph": graph, "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def states_equal(a, b, what):
+    """Every tensor of two flat train states bit-equal; the count of
+    tensors."""
+    check(a.keys() == b.keys(), f"{what}: slot keys differ")
+    unequal = [key for key in a if not torch.equal(a[key], b[key])]
+    check(not unequal, f"{what}: {len(unequal)} of {len(a)} tensors differ, "
+          f"e.g. {unequal[:4]}")
+    kinds = {"ema": sum(key.startswith("ema.") for key in a),
+             "adam": sum(key.startswith("opt.") for key in a),
+             "running": sum("running_" in key for key in a)}
+    check(all(kinds.values()), f"{what}: the slot lacks a kind: {kinds}")
+    return {"tensors": len(a), **kinds}
+
+
+def chunk_profile(device, run, k):
+    """Device busy and span per step, torch.profiler over one chunk of
+    ``k`` steps of a finished run's own state and step objects: on the
+    ``k = 1`` side k ordinary lean steps, on the others one replay of the
+    scan and one ordinary step (lean where the run had one; at K = 10 every
+    ordinary step is a logged one). Random batches of the run's shapes."""
+    ordinary = [c for c in run["calls"] if not c["scan"]]
+    lean = [c for c in ordinary if (c["first"] + 1) % 10] or ordinary
+    step_fn, state = lean[-1]["obj"], lean[-1]["state"]
+    scans = [c["obj"] for c in run["calls"] if c["scan"]]
+    gen = torch.Generator(device=device).manual_seed(77)
+    shape = (GRAPH_BATCH, SIZE, SIZE, 1)
+    xs = [torch.rand(shape, generator=gen, device=device) * 2 - 1
+          for _ in range(2 * k)]
+
+    def chunk():
+        if scans:
+            scans[-1](state, xs[:k - 1], xs[k:2 * k - 1])
+            step_fn(state, xs[k - 1], xs[2 * k - 1])
+        else:
+            for i in range(k):
+                step_fn(state, xs[i], xs[k + i])
+
+    _, busy, span = device_profile(chunk, calls=1)
+    return {"device_busy_ms_per_step": busy / k,
+            "device_span_ms_per_step": span / k}
+
+
+def graph_flash_launches(device):
+    """One flash_fwd, and one dq and dkv, each recorded alone in a CUDA
+    graph and replayed: bit-equal to the eager launch, within the flash
+    gates of the plain version, one launch counted per replay."""
+    from pai_tpu_torch import kernels
+    from pai_tpu_torch.kernels import flash_attention as fa
+    from pai_tpu_torch.utils.graphs import CapturedGraph, GraphStream
+
+    out = {}
+    q, k, v = random_qkv(GRAPH_FLASH_SHAPES["forward"], 910, device,
+                         torch.bfloat16)
+    side = GraphStream()
+    with side:
+        fa.flash_attention(q, k, v, emit_lse=True)
+    graph = CapturedGraph(lambda: fa.flash_attention(q, k, v, emit_lse=True),
+                          side.stream)
+    before = kernels.launch_counts["flash_fwd"]
+    graph.replay()
+    check(kernels.launch_counts["flash_fwd"] == before + 1,
+          "a replay of a captured flash_fwd did not count one launch")
+    o_eager, lse_eager = fa.flash_attention(q, k, v, emit_lse=True)
+    o_graph, lse_graph = graph.output
+    torch.cuda.synchronize()
+    check(torch.equal(o_graph, o_eager) and torch.equal(lse_graph, lse_eager),
+          "captured flash_fwd differs from its eager launch")
+    want_o, want_lse = fa.flash_attention_plain(q, k, v, emit_lse=True)
+    ulps = bf16_ulps(o_graph, want_o)
+    lse_err = float((lse_graph - want_lse).abs().max())
+    check(ulps <= FLASH_BF16_ULPS and lse_err <= FLASH_LSE_TOL,
+          f"captured flash_fwd against plain: {ulps} bf16 units, lse "
+          f"{lse_err}")
+    out["flash_fwd"] = {"shape": list(q.shape), "bf16_ulps": ulps,
+                        "lse_max_abs_err": lse_err, "eager_bit_equal": True,
+                        **graph.stats()}
+    del graph, o_graph, lse_graph, want_o, want_lse
+
+    shape = GRAPH_FLASH_SHAPES["backward"]
+    q, k, v = random_qkv(shape, 911, device, torch.bfloat16)
+    do = random_qkv(shape, 912, device, torch.bfloat16)[0]
+    o, lse = fa.flash_attention(q, k, v, emit_lse=True)
+    with side:
+        fa.flash_attention_backward(q, k, v, o, lse, do)
+    graph = CapturedGraph(
+        lambda: fa.flash_attention_backward(q, k, v, o, lse, do),
+        side.stream)
+    before = dict(kernels.launch_counts)
+    graph.replay()
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        check(kernels.launch_counts[name] == before[name] + 1,
+              f"a replay of a captured {name} did not count one launch")
+    eager = fa.flash_attention_backward(q, k, v, o, lse, do)
+    want = fa.flash_attention_backward_plain(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    entry = {"shape": list(shape), "eager_bit_equal": True, **graph.stats()}
+    for tag, g, e, w in zip(("dq", "dk", "dv"), graph.output, eager, want):
+        check(torch.equal(g, e), f"captured flash backward {tag} differs "
+              "from its eager launch")
+        ulps = bf16_ulps(g, w)
+        err = float((g.float() - w.float()).abs().max())
+        limit = FLASH_BWD_BF16_REL_TOL * float(w.float().abs().max())
+        check(ulps <= FLASH_BF16_ULPS and err <= limit,
+              f"captured flash backward {tag} against plain: {ulps} bf16 "
+              f"units, {err} > {limit}")
+        entry[f"{tag}_bf16_ulps"] = ulps
+        entry[f"{tag}_max_abs_err"] = err
+    out["flash_backward"] = entry
+    return out
+
+
+def phase_graphs(device, workdir):
+    """``--scan-steps 5`` against 1 (the K-1 lean steps of a chunk as one
+    replayed CUDA graph), and the 100-step chain as one graph against the
+    eager loop, with cuDNN deterministic on both sides; see ``main``'s
+    list."""
+    import gc
+
+    from pai_tpu_torch import kernels
+    from pai_tpu_torch.config import TRAIN_DEFAULTS, apply_precision_policy
+    from pai_tpu_torch.diffusion import make_schedule
+    from pai_tpu_torch.diffusion import sampler
+    from pai_tpu_torch.reporting import palette_predictor
+    from pai_tpu_torch.restore import build_generator_from_hparams
+    from pai_tpu_torch.train import steps as steps_lib
+    from pai_tpu_torch.train.loop import train_state_dict
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    result = {"phase": "graphs", "k": GRAPH_K, "cudnn_deterministic": True}
+    try:
+        data = write_pairs(os.path.join(workdir, "pairs"), GRAPH_IMAGES, 11)
+        base = ["smoke", "-d", data, "--batch-size", str(GRAPH_BATCH),
+                "--device", "cuda", "--ema", "--seed", "5"]
+        # (tag, arguments, the K held against K = 1, first step of the
+        # timed window: the first chunk warms the graph up and records it)
+        cases = [
+            ("pix2pix_32", ["-m", "pix2pix", "--loss-type", "gan",
+                            "--precision", "32", "--dropout", "0.5", "-e",
+                            str(GRAPH_PIX2PIX_EPOCHS)], (GRAPH_K,), 10),
+            ("pix2pix_bf16", ["-m", "pix2pix", "--loss-type", "gan",
+                              "--precision", "bf16-mixed", "-e",
+                              str(GRAPH_PIX2PIX_EPOCHS)], (GRAPH_K, 10), 10),
+            ("attention_ssim_bf16", ["-m", "attention_unet", "--loss-type",
+                                     "ssim", "--precision", "bf16-mixed",
+                                     "-e", str(GRAPH_ATTENTION_EPOCHS)],
+             (GRAPH_K,), GRAPH_K)]
+        for tag, argv, ks, window in cases:
+            runs = {k: graph_cli_run(workdir, tag, base + argv, k)
+                    for k in (1,) + ks}
+            one = runs[1]
+            entry = {"steps": one["summary"]["steps"]}
+            for k in ks:
+                scanned = runs[k]
+                entry[f"equal_k{k}"] = states_equal(
+                    one["slot"], scanned["slot"], f"{tag} K = {k}")
+                check(one["summary"]["steps"] == scanned["summary"]["steps"],
+                      f"{tag}: step counts differ")
+                check(one["csv"] == scanned["csv"],
+                      f"{tag}: the logged rows differ:\n{one['csv']}\n"
+                      f"{scanned['csv']}")
+                check(one["launches"] == scanned["launches"],
+                      f"{tag}: launch counts differ {one['launches']} "
+                      f"{scanned['launches']}")
+                check(scanned["graph"] is not None
+                      and scanned["graph"]["replays"] >= 1,
+                      f"{tag}: no chunk replayed a graph at K = {k}")
+            if "ssim" in tag:
+                check(one["launches"]["ssim_scalar"] > 0,
+                      f"{tag}: ssim_scalar was not launched")
+            for k, run in runs.items():
+                entry[f"k{k}"] = {
+                    **window_figures(run["calls"], window),
+                    "seconds": run["seconds"],
+                    "peak_bytes": run["peak_bytes"],
+                    "launches": run["launches"], "graph": run["graph"]}
+                entry[f"k{k}"].update(chunk_profile(device, run,
+                                                    max(k, GRAPH_K)))
+            result[tag] = entry
+            del runs, one, scanned
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # ---- Palette at the CLI defaults, bf16-mixed, batch 4 -----------
+        apply_precision_policy("bf16-mixed")
+        h = dict(TRAIN_DEFAULTS, model="palette", precision="bf16-mixed")
+        rng = np.random.default_rng(12)
+        batches = [tuple(torch.from_numpy(rng.uniform(
+            -1, 1, (GRAPH_PALETTE_BATCH, SIZE, SIZE, 1)).astype(np.float32)
+        ).to(device) for _ in range(2)) for _ in range(GRAPH_PALETTE_STEPS)]
+        sides, kept = {}, None
+        # K = 5 first: its state is kept on the card, its graph pool freed,
+        # before the K = 1 side runs
+        for k in (GRAPH_K, 1):
+            gen = torch.Generator(device=device).manual_seed(5)
+            unet = build_generator_from_hparams(h, SIZE, generator=gen,
+                                                device=device)
+            sched = make_schedule(h["schedule_type"], 2000, 1e-6, 0.01,
+                                  device=device)
+            step = steps_lib.make_palette_train_step(
+                unet, sched, False, warmup_steps_per_epoch=3,
+                generator=gen, seed=5)
+            state = steps_lib.init_palette_state(unet, use_ema=True)
+            scan = steps_lib.make_palette_train_scan(
+                unet, sched, False, warmup_steps_per_epoch=3, generator=gen,
+                seed=5)
+            calls, restore = record_train_calls(steps_lib)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            try:
+                i = 0
+                while i < GRAPH_PALETTE_STEPS:
+                    if k > 1:
+                        head = batches[i:i + k - 1]
+                        scan(state, [b[0] for b in head],
+                             [b[1] for b in head])
+                        i += k - 1
+                    step(state, *batches[i])
+                    i += 1
+                torch.cuda.synchronize()
+            finally:
+                restore()
+            side = {**window_figures(calls, GRAPH_K),
+                    "launches": dict(kernels.launch_counts),
+                    "peak_bytes": torch.cuda.max_memory_allocated()}
+            if k > 1:
+                side["graph"] = scan.graph.stats()
+            flat = train_state_dict(state)
+            if kept is None:
+                kept = {key: v.detach().clone() for key, v in flat.items()}
+            else:
+                result["palette_bf16_equal"] = states_equal(
+                    kept, flat, "palette bf16-mixed")
+            check(state.step == GRAPH_PALETTE_STEPS, "palette step count")
+            sides[f"k{k}"] = side
+            # the UNet of the last side samples the chain below
+            del state, step, scan, flat, calls
+            if k > 1:
+                del unet
+            gc.collect()
+            torch.cuda.empty_cache()
+        del kept
+        per_step = {k: {name: side["launches"][name] / GRAPH_PALETTE_STEPS
+                        for name in ("flash_fwd", "flash_bwd_dq",
+                                     "flash_bwd_dkv")}
+                    for k, side in sides.items()}
+        check(per_step["k1"] == per_step[f"k{GRAPH_K}"]
+              and all(v > 0 for v in per_step["k1"].values()),
+              f"palette flash launches per step: {per_step}")
+        result["palette_bf16"] = {"flash_launches_per_step": per_step["k1"],
+                                  **sides}
+
+        # ---- the chain, graph against the eager loop -------------------
+        unet.eval()
+        x = torch.from_numpy(np.random.default_rng(13).uniform(
+            -1, 1, (GRAPH_CHAIN_BATCH, SIZE, SIZE, 1)).astype(np.float32)
+        ).to(device)
+        predict = palette_predictor(unet, False, True, device)
+        sched_inf = make_schedule("cosine", 100, device=device)
+        chain = {}
+        for run in ("graph", "graph_again", "eager"):
+            gen = torch.Generator(device=device).manual_seed(0)
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = time.perf_counter()
+            with torch.inference_mode():
+                if run == "eager":
+                    y_0, frames = sampler.ddpm_loop(
+                        sched_inf, unet, x, gen, False,
+                        capture_every=sched_inf.timesteps // 7)
+                else:
+                    y_0, frames = predict(x, gen)
+            torch.cuda.synchronize()
+            chain[run] = {"seconds": time.perf_counter() - start,
+                          "launches": dict(kernels.launch_counts),
+                          "peak_bytes": torch.cuda.max_memory_allocated(),
+                          "y_0": y_0, "frames": frames,
+                          "offset": gen.get_offset()}
+            if run != "eager":
+                entry = sampler.chain_graphs[unet][1]
+                chain[run]["graph"] = entry.graph.stats()
+                chain[run]["graph_object"] = id(entry)
+        # the recording call runs one warm-up UNet evaluation before it
+        # records: its launches ran and are counted
+        recording = dict(chain["eager"]["launches"])
+        recording["flash_fwd"] += FLASH_LAUNCHES_PER_FORWARD
+        for run, want in (("graph", recording),
+                          ("graph_again", chain["eager"]["launches"])):
+            check(torch.equal(chain[run]["y_0"], chain["eager"]["y_0"])
+                  and torch.equal(chain[run]["frames"],
+                                  chain["eager"]["frames"]),
+                  f"the chain's graph ({run}) differs from the eager loop")
+            check(chain[run]["launches"] == want,
+                  f"chain launches ({run}): {chain[run]['launches']} "
+                  f"against {want}")
+            check(chain[run]["offset"] == chain["eager"]["offset"],
+                  "the chain's graph left the generator elsewhere")
+        check(chain["graph"]["graph_object"]
+              == chain["graph_again"]["graph_object"]
+              and chain["graph_again"]["graph"]["replays"] == 2,
+              "the second chain call recorded the graph again")
+        check(chain["eager"]["launches"]["flash_fwd"] > 0,
+              "the chain launched no flash_fwd")
+        result["chain_bf16"] = {
+            "batch": GRAPH_CHAIN_BATCH, "bit_equal": True,
+            **{run: {key: value for key, value in entry.items()
+                     if key not in ("y_0", "frames", "graph_object")}
+               for run, entry in chain.items()}}
+        del chain, predict, unet
+        sampler.chain_graphs.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        apply_precision_policy("32")
+
+        result.update(graph_flash_launches(device))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    emit(result)
+    return result
+
+
 def read_csv_steps(path):
     """The ``step`` column of a metrics CSV."""
     with open(path) as f:
@@ -4387,7 +4844,7 @@ def kernels_line(cases, report_batch, launches, flash_cases,
                  palette_launches, bwd_cases, train_launches, gan_launches,
                  family_launches, family_report_launches,
                  interop_launches, parallel_launches, bf16_family_launches,
-                 bf16_family_report_launches):
+                 bf16_family_report_launches, graph_launches):
     described = {
         "ssim_map": ("pai_tpu_torch/kernels/csrc/ssim.cu",
                      "pai_tpu/kernels/ssim_pallas.py:137"),
@@ -4429,6 +4886,8 @@ def kernels_line(cases, report_batch, launches, flash_cases,
                 family_launches[name]
             out[-1]["launches_bf16_family_training_paths"] = {
                 tag: c[name] for tag, c in bf16_family_launches.items()}
+            # attention U-Net ssim, bf16-mixed, --scan-steps 5: 10 steps
+            out[-1]["launches_graph_training_path"] = graph_launches[name]
     main = flash_cases[0]  # (2,4,16384,64): the longer of the Palette path's
     out.append({
         "name": "flash_fwd", "route": "cuda",
@@ -4455,6 +4914,9 @@ def kernels_line(cases, report_batch, launches, flash_cases,
     out[-1]["launches_ring_path"] = parallel_launches["ring"]["flash_fwd"]
     out[-1]["launches_sp2_palette_path"] = \
         parallel_launches["palette_sp2"]["flash_fwd"]
+    # bf16-mixed Palette, --scan-steps 5: 10 steps; one chain as a graph
+    out[-1]["launches_graph_training_path"] = graph_launches["flash_fwd"]
+    out[-1]["launches_graph_chain"] = graph_launches["flash_fwd_chain"]
     main = bwd_cases[0]  # (4,4,16384,64): the longer of the training path's
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         out.append({
@@ -4494,6 +4956,7 @@ def kernels_line(cases, report_batch, launches, flash_cases,
         out[-1]["launches_ring_path"] = parallel_launches["ring"][name]
         out[-1]["launches_sp2_palette_path"] = \
             parallel_launches["palette_sp2"][name]
+        out[-1]["launches_graph_training_path"] = graph_launches[name]
     return {"kernels": out}
 
 
@@ -4556,6 +5019,15 @@ def main():
     with tempfile.TemporaryDirectory(prefix="pai_smoke_parallel_") as workdir:
         parallel_launches = timed("parallel", phase_parallel, device,
                                   workdir)
+    with tempfile.TemporaryDirectory(prefix="pai_smoke_graphs_") as workdir:
+        graphs = timed("graphs", phase_graphs, device, workdir)
+    graph_launches = {
+        "ssim_scalar": graphs["attention_ssim_bf16"][f"k{GRAPH_K}"][
+            "launches"]["ssim_scalar"],
+        **{name: graphs["palette_bf16"][f"k{GRAPH_K}"]["launches"][name]
+           for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}}
+    graph_launches["flash_fwd_chain"] = \
+        graphs["chain_bf16"]["graph_again"]["launches"]["flash_fwd"]
     for name in ("ssim_map", "ssim_scalar"):
         check(launches[name] > 0,
               f"kernel {name} was not launched on the Pix2Pix path")
@@ -4579,12 +5051,16 @@ def main():
               f"kernel ssim_map was not launched on the {tag} bf16-mixed "
               "report path")
 
+    for name, count in graph_launches.items():
+        check(count > 0, f"kernel {name} was not launched on a graph path")
+
     emit({"phase": "seconds", **seconds})
     emit(kernels_line(cases, report_batch, launches, flash_cases,
                       palette_launches, bwd_cases, train_launches,
                       gan_launches, family_launches, family_report_launches,
                       interop_launches, parallel_launches,
-                      bf16_family_launches, bf16_family_report_launches))
+                      bf16_family_launches, bf16_family_report_launches,
+                      graph_launches))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -187,9 +187,14 @@ class Palette(_Experiment):
         xb = self._input(x)
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
-        sample = palette_predictor(
-            self._module, bool(self.hparams.get("learn_variance", False)),
-            output_process, self.device)
-        return sample(xb, generator)
+        # kept per (model, output_process): its schedule, and so the
+        # chain's CUDA graph, serve every later call with these weights
+        key = (id(self._module), output_process)
+        kept = self.__dict__.get("_predictor")
+        if kept is None or kept[0] != key:
+            self._predictor = kept = (key, palette_predictor(
+                self._module, bool(self.hparams.get("learn_variance", False)),
+                output_process, self.device))
+        return kept[1](xb, generator)
 
     __call__ = predict

@@ -18,11 +18,15 @@ switch that forces the plain version on the card.
 
 ``launch_counts`` holds one plain integer per kernel; a wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that it went
-through the kernels.
+through the kernels. Under a CUDA graph's capture a wrapper's launch is
+recorded, not run: ``captured_launches`` takes those adds back and keeps
+them with the graph, and each replay adds them again (``add_launches``), so
+the counts stay the launches that ran.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -30,7 +34,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, Iterator, Mapping, Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
@@ -65,6 +69,28 @@ class KernelCompileError(RuntimeError):
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+@contextlib.contextmanager
+def captured_launches() -> Iterator[Dict[str, int]]:
+    """Around a CUDA graph's capture: yields a dict that holds, once the
+    block has ended, the launches the capture recorded per kernel (what each
+    replay runs); the counts (and ``launched_flops``) are as before the
+    block."""
+    global launched_flops
+    before, flops = dict(launch_counts), launched_flops
+    recorded: Dict[str, int] = {}
+    yield recorded
+    for name in launch_counts:
+        recorded[name] = launch_counts[name] - before[name]
+        launch_counts[name] = before[name]
+    launched_flops = flops
+
+
+def add_launches(recorded: Mapping[str, int]) -> None:
+    """One replay of a graph whose capture recorded ``recorded``."""
+    for name, count in recorded.items():
+        launch_counts[name] += count
 
 
 def find_nvcc() -> str:

@@ -89,9 +89,11 @@ def build_parser() -> ArgumentParser:
                         help="Tensor-parallel degree: convolution kernels "
                              "split on their output channels.")
     parser.add_argument("--scan-steps", default=1, type=int,
-                        help="Accepted for the JAX package's surface: must "
-                             "divide the 10-step log cadence; the steps run "
-                             "one by one.")
+                        help="Fold K-1 lean steps into one dispatch, then "
+                             "one ordinary step (K divides the 10-step log "
+                             "cadence): on the card one replay of a CUDA "
+                             "graph; on the CPU and under a mesh ordinary "
+                             "steps.")
     parser.add_argument("--sp", default=1, type=int,
                         help="Sequence-parallel degree: ring attention over "
                              "the tokens.")

@@ -174,8 +174,11 @@ class AttentionBlock(nn.Module):
         args = (q, k, v) if context is None else (q, k, v, context)
         if torch.is_grad_enabled() and qkv.requires_grad:
             # recomputed in the backward pass (the reference's always-on
-            # checkpointing, the JAX module's jax.checkpoint)
-            a = checkpoint(multihead_attention, *args, use_reentrant=False)
+            # checkpointing, the JAX module's jax.checkpoint); it draws no
+            # random numbers, so no RNG state is stashed (a CUDA graph's
+            # capture could not read it)
+            a = checkpoint(multihead_attention, *args, use_reentrant=False,
+                           preserve_rng_state=False)
         else:
             a = multihead_attention(*args)            # (N, heads, T, D)
         a = a.permute(0, 2, 1, 3).reshape(n, t, c)

@@ -13,7 +13,7 @@ place, one multi-tensor ``lerp_`` over all shadow tensors (no copy of the
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Union
 
 import numpy as np
 import torch
@@ -41,13 +41,33 @@ def decay_for(num_updates: int, decay: float) -> np.float32:
     return min(np.float32(decay), (np.float32(1.0) + n) / (np.float32(10.0) + n))
 
 
+def update_weight(ema: EmaState, ahead: int = 0) -> float:
+    """``1 - decay`` of the update ``ahead`` updates after the next one, in
+    float32 as the JAX package computes it."""
+    return float(np.float32(1.0) - decay_for(ema.num_updates + 1 + ahead,
+                                             ema.decay))
+
+
+def lerp_ema(ema: EmaState, params: Mapping[str, torch.Tensor],
+             weight: Union[float, torch.Tensor]) -> None:
+    """``ema <- ema + weight (params - ema)`` in place, ``torch.lerp``'s
+    arithmetic, the update count left as it is. ``weight`` is a float, or a
+    device scalar where a CUDA graph records the update (one ``lerp_`` per
+    tensor, the same arithmetic)."""
+    names = list(ema.params)
+    shadows = [ema.params[k] for k in names]
+    with torch.no_grad():
+        targets = [params[k].detach() for k in names]
+        if isinstance(weight, torch.Tensor):
+            torch._foreach_lerp_(shadows, targets, [weight] * len(names))
+        else:
+            torch._foreach_lerp_(shadows, targets, weight)
+
+
 def update_ema(ema: EmaState, params: Mapping[str, torch.Tensor]) -> EmaState:
     """One update toward ``params`` (name -> tensor), in place; returns
     ``ema``."""
+    weight = update_weight(ema)
     ema.num_updates += 1
-    weight = float(np.float32(1.0) - decay_for(ema.num_updates, ema.decay))
-    names = list(ema.params)
-    with torch.no_grad():
-        torch._foreach_lerp_([ema.params[k] for k in names],
-                             [params[k].detach() for k in names], weight)
+    lerp_ema(ema, params, weight)
     return ema

@@ -19,10 +19,16 @@ epoch loop, validation cadence, metric logging, best/last checkpoints.
   weights are the EMA's.
 
 Every generator family trains: the seven GAN families (the five losses, with
-the PatchGAN for ``gan``) and Palette. ``--scan-steps K`` is accepted and runs K ordinary
-steps (the JAX package folds them into one compiled ``lax.scan``; the result
-is the same). ``--profile-dir`` writes a ``torch.profiler`` trace of the first
-12 steps there.
+the PatchGAN for ``gan``) and Palette. ``--scan-steps K`` (1, 2, 5 or 10)
+chunks the steps as the JAX package does (``pai_tpu/train/loop.py:495-517``):
+from a K-aligned step where the budget leaves room, K-1 lean steps in one
+dispatch (``steps.TrainScan``: on the card one replay of a CUDA graph, the
+counterpart of the JAX package's ``lax.scan``), then one ordinary step, on
+which every log row falls; the epoch's remainder runs ordinary steps, and no
+chunk runs while the profiler traces. The result is that of K ordinary steps.
+On the CPU and under a mesh the chunk's lean steps are ordinary steps.
+``--profile-dir`` writes a ``torch.profiler`` trace of the first 12 steps
+there.
 
 Multi-device (``pai_tpu/train/loop.py:122-170``): one process per rank,
 started by a launcher (``torchrun --nproc-per-node N``; or a process group the
@@ -411,11 +417,10 @@ class Trainer:
             shard_state([self.model, self.discriminator], self.mesh, self.tp,
                         self.fsdp)
         if self.is_palette:
-            spe = math.ceil(n_train / int(h["batch_size"])) \
-                if h.get("warmup_unit", "epoch") == "epoch" else None
             step = steps_lib.make_palette_train_step(
                 self.model, self.sched_train, self.learn_var,
-                warmup_steps_per_epoch=spe, generator=self.generator,
+                warmup_steps_per_epoch=self._warmup_unit(n_train),
+                generator=self.generator,
                 seed=self.seed)
             state = steps_lib.init_palette_state(self.model, bool(h["ema"]))
             return state, step, step
@@ -426,6 +431,24 @@ class Trainer:
             compute_metrics=full, rng=self.generator, seed=self.seed)
             for full in (True, False))
         return state, step, lean
+
+    def _scan(self, n_train: int) -> steps_lib.TrainScan:
+        """The lean steps of a ``--scan-steps`` chunk in one dispatch."""
+        h = self.hparams
+        if self.is_palette:
+            return steps_lib.make_palette_train_scan(
+                self.model, self.sched_train, self.learn_var,
+                warmup_steps_per_epoch=self._warmup_unit(n_train),
+                generator=self.generator, seed=self.seed)
+        return steps_lib.make_gan_train_scan(
+            self.model, self.discriminator, h["loss_type"],
+            rng=self.generator, seed=self.seed)
+
+    def _warmup_unit(self, n_train: int) -> Optional[int]:
+        """Steps per epoch where Palette's warmup advances per epoch."""
+        h = self.hparams
+        return math.ceil(n_train / int(h["batch_size"])) \
+            if h.get("warmup_unit", "epoch") == "epoch" else None
 
     # ------------------------------------------------------------------
     def fit(self) -> Dict[str, float]:
@@ -442,6 +465,8 @@ class Trainer:
         bs = int(h["batch_size"])
         train_dataset = ImageDataset(h["data"], self.image_size)
         state, train_step, lean_step = self._steps(len(train_dataset))
+        self.train_scan = self._scan(len(train_dataset)) \
+            if int(h.get("scan_steps") or 1) > 1 else None
         val_dataset = ImageDataset(h["val_data"], self.image_size) \
             if h.get("val_data") else None
         rows = dict(process_index=self.dp_rank, process_count=self.dp,
@@ -475,56 +500,91 @@ class Trainer:
             profiler.start()
 
         max_steps = int(h["steps"])
+        scan_k = int(h.get("scan_steps") or 1)
         progress = _Progress()
         last_val: Dict[str, float] = {}
         images_seen = 0
         done = False
+        # the same on every rank (only rank zero traces): the ranks must
+        # chunk alike
+        profiling = bool(h.get("profile_dir"))
         t0 = time.time()
+
+        def process_single(state, batch, epoch):
+            """One optimizer step and its logging, divergence, profiler and
+            budget bookkeeping; returns whether the step budget is spent."""
+            nonlocal images_seen, profiler, profiling
+            step = train_step if (state.step + 1) % LOG_EVERY == 0 \
+                else lean_step
+            state, step_metrics = step(state, batch.x, batch.y)
+            images_seen += batch.n_valid
+            if state.step % LOG_EVERY == 0:
+                # the loop's one wait for the device
+                vals = {k: float(v) for k, v in step_metrics.items()}
+                if self.is_main:
+                    self.logger.log_metrics(vals, state.step, epoch)
+                    rate = images_seen / max(time.time() - t0, 1e-9)
+                    progress.logged(vals)
+                    progress.update(
+                        f"epoch {epoch + 1} step {state.step} "
+                        + " ".join(f"{k}={v:.4f}" for k, v in vals.items())
+                        + f" | {rate:.1f} img/s")
+                if not np.isfinite(vals["loss"]):
+                    flat, extra = self._slot(state)
+                    self.ckpt.save_diverged(flat, h, state.step, epoch,
+                                            **extra)
+                    raise FloatingPointError(
+                        f"non-finite loss at step {state.step} (diverged "
+                        "state saved for postmortem; --resume recovers from "
+                        "the last checkpoint)")
+            elif self.is_main and progress.live:
+                # the previous step's values where they have arrived, then
+                # this step's copy started
+                progress.fetch()
+                progress.stage(step_metrics)
+                progress.update(
+                    f"epoch {epoch + 1} step {state.step} "
+                    + " ".join(f"{k}={v:.4f}"
+                               for k, v in progress.values.items()),
+                    throttle=True)
+            if profiling and state.step >= PROFILE_STEPS:
+                profiling = False
+                if profiler is not None:
+                    self._stop_profiler(profiler)
+                    profiler = None
+            return max_steps > 0 and state.step >= max_steps
+
         epoch = start_epoch - 1  # resume may already satisfy the budget
         try:
             for epoch in range(start_epoch, int(h["epochs"])):
                 loader.epoch = epoch  # the epoch's seeded order
+                pending = []
                 for batch in loader:
-                    step = train_step if (state.step + 1) % LOG_EVERY == 0 \
-                        else lean_step
-                    state, step_metrics = step(state, batch.x, batch.y)
-                    images_seen += batch.n_valid
-                    if state.step % LOG_EVERY == 0:
-                        # the loop's one wait for the device
-                        vals = {k: float(v) for k, v in step_metrics.items()}
-                        if self.is_main:
-                            self.logger.log_metrics(vals, state.step, epoch)
-                            rate = images_seen / max(time.time() - t0, 1e-9)
-                            progress.logged(vals)
-                            progress.update(
-                                f"epoch {epoch + 1} step {state.step} "
-                                + " ".join(f"{k}={v:.4f}"
-                                           for k, v in vals.items())
-                                + f" | {rate:.1f} img/s")
-                        if not np.isfinite(vals["loss"]):
-                            flat, extra = self._slot(state)
-                            self.ckpt.save_diverged(flat, h, state.step,
-                                                    epoch, **extra)
-                            raise FloatingPointError(
-                                f"non-finite loss at step {state.step} "
-                                "(diverged state saved for postmortem; "
-                                "--resume recovers from the last "
-                                "checkpoint)")
-                    elif self.is_main and progress.live:
-                        # the previous step's values where they have
-                        # arrived, then this step's copy started
-                        progress.fetch()
-                        progress.stage(step_metrics)
-                        progress.update(
-                            f"epoch {epoch + 1} step {state.step} "
-                            + " ".join(f"{k}={v:.4f}"
-                                       for k, v in progress.values.items()),
-                            throttle=True)
-                    if profiler is not None and state.step >= PROFILE_STEPS:
-                        self._stop_profiler(profiler)
-                        profiler = None
-                    if max_steps > 0 and state.step >= max_steps:
-                        done = True
+                    # --scan-steps K (pai_tpu/train/loop.py:495-517): K-1
+                    # lean steps in one dispatch, then one ordinary step,
+                    # which a log row always falls on; chunks start only at
+                    # K-aligned steps where the budget leaves room, and not
+                    # while the profiler traces
+                    if (scan_k > 1 and not profiling
+                            and state.step % scan_k == 0
+                            and (max_steps <= 0
+                                 or state.step + scan_k <= max_steps)):
+                        pending.append(batch)
+                        if len(pending) < scan_k:
+                            continue
+                        head, last = pending[:-1], pending[-1]
+                        pending = []
+                        state, _ = self.train_scan(
+                            state, [b.x for b in head], [b.y for b in head])
+                        images_seen += sum(b.n_valid for b in head)
+                        done = process_single(state, last, epoch)
+                    else:
+                        done = process_single(state, batch, epoch)
+                    if done:
+                        break
+                for batch in pending:  # the epoch's remainder: plain steps
+                    done = process_single(state, batch, epoch)
+                    if done:
                         break
 
                 if (epoch + 1) % int(h["val_epochs"]) == 0 \

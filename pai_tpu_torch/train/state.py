@@ -7,19 +7,22 @@ reference's ``models/wrapper.py:97-115``).
 Palette: Adam with lr 1e-4, betas (0.9, 0.999), eps 1e-8. Both are
 ``torch.optim.Adam``: the optimizer is plain PyTorch, not one of the TPU
 kernels; its fused CUDA implementation on the card, which keeps no
-parameter-sized temporaries. Palette's learning rate follows torch
-``LinearLR``'s warmup as the JAX package reproduces it, ``1e-4 * (1/3 + 2/3
-* min(unit, 10000) / 10000)``, where ``unit`` is the optimizer step or, by
-default, the epoch (``step // steps_per_epoch``: Lightning steps the
-reference's scheduler once per epoch). It is read at the count before the
-step, as optax reads its schedule, and computed in float32 as the JAX
-package computes it.
+parameter-sized temporaries, in its capturable form (a CUDA graph may
+record its step), with Palette's learning rate a device scalar that every
+step writes (``set_lr``): a graph reads it from there, and the ordinary
+step takes the same path, so the two do not round apart. Palette's
+learning rate follows torch ``LinearLR``'s warmup as the JAX package
+reproduces it, ``1e-4 * (1/3 + 2/3 * min(unit, 10000) / 10000)``, where
+``unit`` is the optimizer step or, by default, the epoch (``step //
+steps_per_epoch``: Lightning steps the reference's scheduler once per
+epoch). It is read at the count before the step, as optax reads its
+schedule, and computed in float32 as the JAX package computes it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Union
 
 import numpy as np
 import torch
@@ -46,17 +49,34 @@ def palette_lr(step: int, steps_per_epoch: Optional[int] = None,
 
 def gan_optimizer(params: Iterable[torch.nn.Parameter]) -> torch.optim.Adam:
     params = list(params)
-    fused = bool(params) and params[0].is_cuda
+    cuda = bool(params) and params[0].is_cuda
     return torch.optim.Adam(params, lr=GAN_LR, betas=(0.5, 0.999), eps=1e-7,
-                            fused=fused)
+                            fused=cuda, capturable=cuda)
 
 
 def palette_optimizer(params: Iterable[torch.nn.Parameter],
                       base_lr: float = BASE_LR) -> torch.optim.Adam:
     params = list(params)
-    fused = bool(params) and params[0].is_cuda
-    return torch.optim.Adam(params, lr=base_lr, betas=(0.9, 0.999), eps=1e-8,
-                            fused=fused)
+    cuda = bool(params) and params[0].is_cuda
+    lr = torch.tensor(base_lr, dtype=torch.float32,
+                      device=params[0].device) if cuda else base_lr
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            fused=cuda, capturable=cuda)
+
+
+def set_lr(opt: torch.optim.Optimizer,
+           lr: Union[float, torch.Tensor]) -> None:
+    """The learning rate of ``opt``'s next step: written into the device
+    scalar of a CUDA optimizer (a float, or a device scalar where a CUDA
+    graph records the step), set as it is on the CPU."""
+    for group in opt.param_groups:
+        if isinstance(group["lr"], torch.Tensor) and group["lr"].is_cuda:
+            if isinstance(lr, torch.Tensor):
+                group["lr"].copy_(lr)
+            else:
+                group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
 
 
 @dataclasses.dataclass

@@ -37,6 +37,13 @@ give JAX's numbers; Palette's ``external_rand=True`` builds the variant that
 takes ``{"t", "noise", "u"}`` instead, so that tests can feed both packages
 the same draws.
 
+Each train step is a ``TrainStep``: the host's part (the re-seed, the
+learning rate and EMA weight read from the counts, the counts' advance)
+around a device body that reads no host value, so that ``TrainScan``
+(``--scan-steps K``, ``make_gan_train_scan``/``make_palette_train_scan``,
+the JAX package's ``lax.scan`` of K steps) can record K of them in one CUDA
+graph on the card.
+
 The GAN evaluation step and the Palette sample step run under
 ``torch.inference_mode()`` (``torch.no_grad()`` for FSDP shares) with the
 evaluation weights swapped in by ``call_with_params`` and score their output with the per-image
@@ -54,15 +61,18 @@ from torch import nn
 from pai_tpu_torch.diffusion import (DiffusionSchedule, ddpm_sample, q_sample,
                                      vlb_term)
 from pai_tpu_torch.ops import Dropout, Dropout2d
+from pai_tpu_torch.parallel.context import get_mesh_context
 from pai_tpu_torch.parallel.distributed import all_reduce_mean_
 from pai_tpu_torch.parallel.mesh import dp_mean, dp_of_context, draw_rows
 from pai_tpu_torch.parallel.partitioning import is_sharded, reshard
 from pai_tpu_torch.train import losses
-from pai_tpu_torch.train.ema import init_ema, update_ema
-from pai_tpu_torch.train.state import (GanTrainState, PaletteTrainState,
-                                       gan_optimizer, gan_parameters,
-                                       palette_lr, palette_optimizer)
+from pai_tpu_torch.train.ema import init_ema, lerp_ema, update_weight
+from pai_tpu_torch.train.state import (GAN_LR, GanTrainState,
+                                       PaletteTrainState, gan_optimizer,
+                                       gan_parameters, palette_lr,
+                                       palette_optimizer, set_lr)
 from pai_tpu_torch.utils import metrics
+from pai_tpu_torch.utils.graphs import CapturedGraph, GraphStream
 from pai_tpu_torch.utils.images import denormalize
 
 
@@ -156,12 +166,46 @@ def sync_gradients(params) -> None:
         all_reduce_mean_(grads, group)
 
 
+class TrainStep:
+    """``step(state, x, y, rand=None) -> (state, metrics)``: one optimizer
+    step. The host's part of it is here: the re-seed of ``rng`` from
+    ``(seed, step)``, the step's learning rate and EMA weight (``values``,
+    read from the counts before the step) and the counts' advance. The
+    device work is ``body(state, x, y, lr, ema_weight, rand)``, which reads
+    no host state: ``TrainScan`` records it in a CUDA graph, with ``lr``
+    and ``ema_weight`` as device scalars, where here they are floats."""
+
+    def __init__(self, body: Callable, values: Callable,
+                 rng: Optional[torch.Generator] = None, seed: int = 0):
+        self.body, self.values, self.rng, self.seed = body, values, rng, seed
+
+    def __call__(self, state, x: torch.Tensor, y: torch.Tensor,
+                 rand: Optional[Mapping] = None):
+        if self.rng is not None:
+            self.rng.manual_seed(step_seed(self.seed, state.step))
+        metrics = self.body(state, x, y, *self.values(state, 0), rand)
+        advance(state, 1)
+        return state, metrics
+
+
+def advance(state, steps: int) -> None:
+    """The counts after ``steps`` optimizer steps: the step's and the
+    EMA's."""
+    state.step += steps
+    if state.ema is not None:
+        state.ema.num_updates += steps
+
+
+def _ema_weight(state, ahead: int) -> float:
+    return update_weight(state.ema, ahead) if state.ema is not None else 0.0
+
+
 def make_gan_train_step(generator: nn.Module,
                         discriminator: Optional[nn.Module], loss_type: str,
                         compute_metrics: bool = True,
                         with_grads: bool = False,
                         rng: Optional[torch.Generator] = None,
-                        seed: int = 0) -> Callable:
+                        seed: int = 0) -> TrainStep:
     """``train_step(state, x, y) -> (state, metrics)`` of a GAN family.
     ``metrics``: ``loss`` (the generator's), ``d_loss`` for ``gan``, and with
     ``compute_metrics`` ``train_ssim``/``train_psnr``/``train_rmse`` of the
@@ -173,10 +217,9 @@ def make_gan_train_step(generator: nn.Module,
     gan = loss_type == "gan"
     exact_double = gan and generator_dropout_active(generator)
 
-    def train_step(state: GanTrainState, x: torch.Tensor, y: torch.Tensor):
+    def body(state: GanTrainState, x: torch.Tensor, y: torch.Tensor, lr,
+             ema_weight, rand=None):
         model = state.generator.train()
-        if rng is not None:
-            rng.manual_seed(step_seed(seed, state.step))
         out: Dict[str, torch.Tensor] = {}
         if exact_double:
             with torch.no_grad():
@@ -216,8 +259,7 @@ def make_gan_train_step(generator: nn.Module,
                               for k, p in model.named_parameters()}
         state.g_opt.step()
         if state.ema is not None:
-            update_ema(state.ema, gan_parameters(state))
-        state.step += 1
+            lerp_ema(state.ema, gan_parameters(state), ema_weight)
 
         step_metrics = {"loss": g_loss.detach(), **out}
         if compute_metrics:
@@ -226,9 +268,12 @@ def make_gan_train_step(generator: nn.Module,
                 step_metrics.update(train_ssim=metrics.ssim(dp, dt),
                                     train_psnr=metrics.psnr(dp, dt),
                                     train_rmse=metrics.rmse(dp, dt))
-        return state, step_metrics
+        return step_metrics
 
-    return train_step
+    def values(state: GanTrainState, ahead: int):
+        return GAN_LR, _ema_weight(state, ahead)
+
+    return TrainStep(body, values, rng, seed)
 
 
 def _no_grad_for(model: nn.Module):
@@ -294,7 +339,7 @@ def make_palette_train_step(unet: nn.Module, sched: DiffusionSchedule,
                             warmup_steps_per_epoch: Optional[int] = None,
                             external_rand: bool = False,
                             generator: Optional[torch.Generator] = None,
-                            seed: int = 0) -> Callable:
+                            seed: int = 0) -> TrainStep:
     """``train_step(state, x, y_0, rand=None) -> (state, metrics)``.
     ``warmup_steps_per_epoch`` set => the warmup advances once per epoch
     (the default of the CLI); None => once per step. ``generator`` (on the
@@ -302,8 +347,8 @@ def make_palette_train_step(unet: nn.Module, sched: DiffusionSchedule,
     ``(seed, step)`` every step; with ``external_rand`` the draws are
     ``rand = {"t", "noise", "u"}`` and dropout must be off."""
 
-    def train_step(state: PaletteTrainState, x: torch.Tensor,
-                   y_0: torch.Tensor, rand: Optional[Mapping] = None):
+    def body(state: PaletteTrainState, x: torch.Tensor, y_0: torch.Tensor,
+             lr, ema_weight, rand: Optional[Mapping] = None):
         n, c = y_0.shape[0], y_0.shape[-1]
         model = state.model.train()
         if external_rand:
@@ -313,7 +358,6 @@ def make_palette_train_step(unet: nn.Module, sched: DiffusionSchedule,
                 noise=torch.as_tensor(rand["noise"], device=y_0.device),
                 u=torch.as_tensor(rand["u"], device=y_0.device))
         else:
-            generator.manual_seed(step_seed(seed, state.step))
             t = draw_rows(lambda shape: torch.randint(
                 0, sched.timesteps, shape, generator=generator,
                 device=y_0.device), (n,))
@@ -330,17 +374,139 @@ def make_palette_train_step(unet: nn.Module, sched: DiffusionSchedule,
         state.opt.zero_grad(set_to_none=True)
         loss.backward()
         sync_gradients(model.parameters())
-        lr = palette_lr(state.step, warmup_steps_per_epoch)
-        for group in state.opt.param_groups:
-            group["lr"] = lr
+        set_lr(state.opt, lr)
         state.opt.step()
         if state.ema is not None:
-            update_ema(state.ema, dict(model.named_parameters()))
-        state.step += 1
-        return state, {"loss": loss.detach(), "mse_loss": mse_loss.detach(),
-                       "vlb_loss": vlb.detach()}
+            lerp_ema(state.ema, dict(model.named_parameters()), ema_weight)
+        return {"loss": loss.detach(), "mse_loss": mse_loss.detach(),
+                "vlb_loss": vlb.detach()}
 
-    return train_step
+    def values(state: PaletteTrainState, ahead: int):
+        return (palette_lr(state.step + ahead, warmup_steps_per_epoch),
+                _ema_weight(state, ahead))
+
+    return TrainStep(body, values, None if external_rand else generator,
+                     seed)
+
+
+class TrainScan:
+    """``scan(state, xs, ys, rands=None) -> (state, metrics)``: ``len(xs)``
+    lean steps (``step``: a ``TrainStep``) in one dispatch, counterpart of
+    ``pai_tpu``'s ``make_gan_train_scan`` and ``make_palette_train_scan``
+    (``pai_tpu/train/steps.py:288-325``, one ``lax.scan``); ``metrics`` are
+    the last step's.
+
+    On the card, with no mesh installed, the steps' device work is one CUDA
+    graph (``utils.graphs``), replayed once per call: ``fold`` as the graph
+    records it. The first call, and a call with other shapes, warms the
+    graph up: its steps run as ordinary steps on the graph's stream, then
+    the graph is recorded (which runs nothing). Before each replay the host
+    writes what the steps read of it: the batches into the graph's input
+    buffers, each step's learning rate and EMA weight into a device tensor,
+    and each step's seed ``step_seed(seed, step)`` into a generator state of
+    its own, registered with the graph, which the step's draws come from
+    (``rng`` is switched to it while the graph records that step). So a
+    replay draws, and computes, what the ordinary steps do, and the counts
+    advance on the host after it.
+
+    On the CPU, and under a mesh (the collectives of a gloo group stage
+    through host memory, which a graph cannot record), the steps are
+    ordinary steps. ``rands`` (external draws) are taken on those paths
+    only."""
+
+    def __init__(self, step: TrainStep):
+        self.step = step
+        self.graph = None
+        self._key = None
+        self._side = None
+
+    def __call__(self, state, xs: List[torch.Tensor],
+                 ys: List[torch.Tensor], rands: Optional[List] = None):
+        if not xs[0].is_cuda or get_mesh_context() is not None:
+            for i in range(len(xs)):
+                state, out = self.step(state, xs[i], ys[i],
+                                       rands[i] if rands else None)
+            return state, out
+        if rands is not None:
+            raise ValueError("a CUDA graph of train steps makes its own "
+                             "draws; external draws run ordinary steps")
+        key = (len(xs), xs[0].shape, xs[0].dtype, ys[0].shape, ys[0].dtype)
+        if key != self._key:
+            self._side = self._side or GraphStream()
+            with self._side:
+                for x, y in zip(xs, ys):
+                    state, out = self.step(state, x, y)
+            self._record(state, xs, ys)
+            self._key = key
+            return state, out
+        for i in range(len(xs)):
+            self._xs[i].copy_(xs[i])
+            self._ys[i].copy_(ys[i])
+        self._values.copy_(self.host_values(state, len(xs)).pin_memory(),
+                           non_blocking=True)
+        for i, rng_state in enumerate(self._rng_states):
+            rng_state.manual_seed(step_seed(self.step.seed, state.step + i))
+        self.graph.replay()
+        advance(state, len(xs))
+        return state, self.graph.output
+
+    def host_values(self, state, n: int) -> torch.Tensor:
+        """(n, 2) float32 on the host: each step's learning rate and EMA
+        weight."""
+        return torch.tensor([self.step.values(state, i) for i in range(n)],
+                            dtype=torch.float32)
+
+    def fold(self, state, xs, ys, values: torch.Tensor, rng_states=(),
+             rands: Optional[List] = None) -> Dict[str, torch.Tensor]:
+        """The device work of ``len(xs)`` steps as a graph records it: step
+        i takes its learning rate and EMA weight from ``values[i]`` (device
+        scalars) and draws from ``rng_states[i]`` where given; the counts
+        are left as they are. Returns the last step's metrics."""
+        rng = self.step.rng
+        live = rng.graphsafe_get_state() if rng_states else None
+        for i in range(len(xs)):
+            if rng_states:
+                rng.graphsafe_set_state(rng_states[i])
+            out = self.step.body(state, xs[i], ys[i], values[i, 0],
+                                 values[i, 1], rands[i] if rands else None)
+        if rng_states:
+            rng.graphsafe_set_state(live)
+        return out
+
+    def _record(self, state, xs, ys) -> None:
+        self._xs, self._ys = torch.stack(xs), torch.stack(ys)
+        self._values = torch.zeros((len(xs), 2), dtype=torch.float32,
+                                   device=xs[0].device)
+        rng = self.step.rng
+        self._rng_states = [rng.clone_state() for _ in xs] \
+            if rng is not None else []
+        self.graph = None  # the old graph's pool is freed first
+        self.graph = CapturedGraph(
+            lambda: self.fold(state, self._xs, self._ys, self._values,
+                              self._rng_states),
+            self._side.stream, self._rng_states)
+
+
+def make_gan_train_scan(generator: nn.Module,
+                        discriminator: Optional[nn.Module], loss_type: str,
+                        rng: Optional[torch.Generator] = None,
+                        seed: int = 0) -> TrainScan:
+    """K lean GAN steps per dispatch (``TrainScan``)."""
+    return TrainScan(make_gan_train_step(generator, discriminator, loss_type,
+                                         compute_metrics=False, rng=rng,
+                                         seed=seed))
+
+
+def make_palette_train_scan(unet: nn.Module, sched: DiffusionSchedule,
+                            learn_var: bool,
+                            warmup_steps_per_epoch: Optional[int] = None,
+                            external_rand: bool = False,
+                            generator: Optional[torch.Generator] = None,
+                            seed: int = 0) -> TrainScan:
+    """K Palette steps per dispatch (``TrainScan``)."""
+    return TrainScan(make_palette_train_step(
+        unet, sched, learn_var, warmup_steps_per_epoch, external_rand,
+        generator, seed))
 
 
 def palette_eval_params(state: PaletteTrainState) -> Dict[str, torch.Tensor]:
@@ -359,15 +525,21 @@ def make_palette_sample_step(unet: nn.Module, sched_inf: DiffusionSchedule,
     swapped into ``unet``, and per-image ``ssim``/``psnr``/``mse`` of the
     result against ``y_0``."""
 
+    bound: Dict[str, object] = {}  # the denoiser of the last weights
+
     def sample(params: Mapping[str, torch.Tensor], x: torch.Tensor,
                y_0: torch.Tensor, generator: torch.Generator):
         unet.eval()
-
-        def denoise_fn(cond, y_t, gamma):
-            return call_with_params(unet, params, (cond, y_t, gamma))
+        # one denoiser per set of weights (by address), so that the chain's
+        # CUDA graph, which reads them where they are, is recorded once
+        weights = tuple(v.data_ptr() for v in params.values())
+        if bound.get("weights") != weights:
+            bound.clear()
+            bound.update(weights=weights, fn=lambda cond, y_t, gamma:
+                         call_with_params(unet, params, (cond, y_t, gamma)))
 
         with _no_grad_for(unet):
-            y_pred = ddpm_sample(sched_inf, denoise_fn, x, generator,
+            y_pred = ddpm_sample(sched_inf, bound["fn"], x, generator,
                                  learn_var)
             dp, dt = denormalize(y_pred), denormalize(y_0)
             per_image = {"ssim": metrics.ssim_per_image(dp, dt),

@@ -100,17 +100,25 @@ def port_generator(name, mults, size=32, dropout=0.0, **kwargs):
                            **kwargs)
 
 
-def generator_numpy_variables(name, mults, size, seed):
-    """(flax module, params, batch_stats) for the JAX package's generator
-    ``name`` (``jax_generator``) with numpy-made weights; nothing is
-    computed in JAX beyond shapes."""
+@functools.lru_cache(maxsize=None)
+def _generator_shapes(name, mults, size):
+    """(flax module, its abstract variables): ``init`` traced once per
+    configuration and process (tracing a model's ``init`` takes seconds;
+    the weights are drawn anew for every caller)."""
     import jax
     import jax.numpy as jnp
 
     module = jax_generator(name, mults, size)
-    abstract = jax.eval_shape(
+    return module, jax.eval_shape(
         lambda: module.init(jax.random.key(0),
                             jnp.zeros((1, size, size, 1)), train=False))
+
+
+def generator_numpy_variables(name, mults, size, seed):
+    """(flax module, params, batch_stats) for the JAX package's generator
+    ``name`` (``jax_generator``) with numpy-made weights; nothing is
+    computed in JAX beyond shapes."""
+    module, abstract = _generator_shapes(name, tuple(mults), size)
     rng = np.random.default_rng(seed)
     params = numpy_tree_like(abstract["params"], rng, "params")
     stats = numpy_tree_like(abstract["batch_stats"], rng, "stats")
@@ -119,6 +127,23 @@ def generator_numpy_variables(name, mults, size, seed):
 
 def pix2pix_numpy_variables(mults, size, seed):
     return generator_numpy_variables("pix2pix", mults, size, seed)
+
+
+@functools.lru_cache(maxsize=None)
+def _palette_shapes(mults, attn_res, size, learn_var, inner, num_heads):
+    """``_generator_shapes`` of a Palette DiffusionUNet."""
+    import jax
+    import jax.numpy as jnp
+    from pai_tpu.models.diffusion_unet import DiffusionUNet
+
+    module = DiffusionUNet(in_channels=2, out_channels=2 if learn_var else 1,
+                           inner_channel=inner, res_blocks=2,
+                           channel_mults=mults, attn_res=attn_res,
+                           num_heads=num_heads)
+    zeros = jnp.zeros((1, size, size, 1))
+    return module, jax.eval_shape(
+        lambda: module.init(jax.random.key(0), zeros, zeros,
+                            jnp.zeros((1,)), train=False))
 
 
 def palette_numpy_variables(mults, attn_res, size, seed, learn_var=False,
@@ -130,18 +155,8 @@ def palette_numpy_variables(mults, attn_res, size, seed, learn_var=False,
     like any other layer — at half the scale, so the residual stream grows
     slowly — or attention and the second half of each ResBlock would not
     reach the output."""
-    import jax
-    import jax.numpy as jnp
-    from pai_tpu.models.diffusion_unet import DiffusionUNet
-
-    module = DiffusionUNet(in_channels=2, out_channels=2 if learn_var else 1,
-                           inner_channel=inner, res_blocks=2,
-                           channel_mults=tuple(mults),
-                           attn_res=tuple(attn_res), num_heads=num_heads)
-    zeros = jnp.zeros((1, size, size, 1))
-    abstract = jax.eval_shape(
-        lambda: module.init(jax.random.key(0), zeros, zeros,
-                            jnp.zeros((1,)), train=False))
+    module, abstract = _palette_shapes(tuple(mults), tuple(attn_res), size,
+                                       learn_var, inner, num_heads)
     rng = np.random.default_rng(seed)
     params = numpy_tree_like(abstract["params"], rng, "params")
     stats = numpy_tree_like(abstract["batch_stats"], rng, "stats")
@@ -260,18 +275,22 @@ def gan_batches(seed, n, size=32, batch=2):
     return out
 
 
-def discriminator_numpy_params(seed, size=32):
-    """numpy-made ``params`` of the JAX package's PatchGAN over a pair of
-    one-channel images."""
+@functools.lru_cache(maxsize=None)
+def _discriminator_shapes(size):
     import jax
     import jax.numpy as jnp
     from pai_tpu.models import Discriminator
 
     zeros = jnp.zeros((1, size, size, 1))
-    abstract = jax.eval_shape(
+    return jax.eval_shape(
         lambda: Discriminator().init(jax.random.key(0), zeros, zeros))
-    return numpy_tree_like(abstract["params"], np.random.default_rng(seed),
-                           "params")
+
+
+def discriminator_numpy_params(seed, size=32):
+    """numpy-made ``params`` of the JAX package's PatchGAN over a pair of
+    one-channel images (its shapes traced once per size and process)."""
+    return numpy_tree_like(_discriminator_shapes(size)["params"],
+                           np.random.default_rng(seed), "params")
 
 
 def reference_state_dict(weights, prefix):
@@ -384,11 +403,13 @@ def slot_from_jax(jstate, loss_type, hp, family="pix2pix"):
 
 
 def compare_step(tstate, jstate, loss_type, before, hp, family="pix2pix",
-                 moment_tol=1e-4):
+                 moment_tol=1e-4, steps=1):
     """One step's result from a shared state (the tolerances are those of
     ``tests/test_torch_port_gan_train.py``'s docstring); ``before`` is the
     shared state as a slot. ``moment_tol`` bounds the generator's Adam first
-    moments (the second: twice that) relative to each tensor's largest."""
+    moments (the second: twice that) relative to each tensor's largest.
+    ``steps`` > 1: the result of that many steps from ``before``, the
+    parameters and EMA weights held to the sum of the steps' bounds."""
     from pai_tpu_torch.train.loop import train_state_dict
     from pai_tpu_torch.train.state import GAN_LR
 
@@ -411,7 +432,7 @@ def compare_step(tstate, jstate, loss_type, before, hp, family="pix2pix",
             assert float(got[f"opt.{key}.step"]) == float(jstate.step)
             for what in (key, "ema." + key):
                 diff = (got[what] - after[what]).abs()
-                assert float(diff.max()) <= 2.0 * GAN_LR, what
+                assert float(diff.max()) <= 2.0 * GAN_LR * steps, what
             if name in degenerate:
                 for side in (got[f"opt.{key}.exp_avg"], mu):
                     assert float(side.abs().max()) <= 1e-3 * top, key
@@ -426,7 +447,8 @@ def compare_step(tstate, jstate, loss_type, before, hp, family="pix2pix",
             large = mu.abs() >= max(1e-3, tol) * mu.abs().max()
             for what in (key, "ema." + key):
                 diff = (got[what] - after[what]).abs()
-                assert float(diff[large].max()) <= 1e-2 * GAN_LR, what
+                assert float(diff[large].max()) <= 1e-2 * GAN_LR * steps, \
+                    what
     for name, buf in tstate.generator.named_buffers():
         if name.endswith(("running_mean", "running_var")):
             assert rel(buf, after[name]) <= 1e-4, name
