@@ -25,9 +25,11 @@ printing one JSON line:
    and spills (``-Xptxas -v``) and, where the toolkit has ``cuobjdump``, the
    counts of HMMA (warp-level tensor-core), HGMMA (warpgroup ``wgmma``) and
    UTMALDG (TMA load) instructions in its SASS: the forward, dq and dkv in
-   bfloat16 at D = 64 and 128 must have HGMMA and UTMALDG, every other flash
-   kernel (forward, dq, dkv) HMMA, and none may spill up to D = 128; the
-   same report of the three SSIM kernels, none of which may spill.
+   bfloat16 at D = 64 and 128, and the forward and dkv in float32 there,
+   must have HGMMA and UTMALDG, every other flash kernel (forward, dq, dkv)
+   HMMA, none may spill up to D = 128 and ptxas may serialise no kernel's
+   wgmmas (C7520); the same report of the three SSIM kernels and the split
+   pass, none of which may spill.
 2. ``kernels`` — each kernel's wrapper against its plain version on CUDA
    tensors at the shapes the report path gives it and at ragged and
    multi-channel shapes; times by CUDA events (warmed, median of 25 samples
@@ -41,12 +43,15 @@ printing one JSON line:
    views of a packed qkv tensor, the log-sum-exp output (in every bfloat16
    and peaked case too, and beside every backward case the o and lse that
    the backward takes), and the inputs that must raise; per case the
-   arithmetic route (``wgmma-bf16``, ``mma-bf16`` or ``mma-3xtf32``) of the
+   arithmetic route (``wgmma-bf16``, ``wgmma-3xtf32``, ``mma-bf16`` or
+   ``mma-3xtf32``) of the
    kernel that the build phase saw launch at its type and head dim, two
    launches bit-equal, and the bound at its rate, for float32 also at the
    CUDA cores' rate; beside the kernel's time the plain version's and that
    of PyTorch's own fused attention call on the same tensors (timed here,
-   used nowhere in the port).
+   used nowhere in the port). The split pass (``flash_split``) of the
+   float32 forward and dkv at the Palette paths' shapes and on packed views,
+   bit-equal to its plain version, timed beside it.
 3. ``report``  — a 32-pair 256x256 synthetic dataset written with the port's
    native PNG writer, a full-width Pix2Pix with random weights from a seeded
    generator and non-trivial BatchNorm statistics saved as a checkpoint, then
@@ -176,14 +181,15 @@ printing one JSON line:
    graph, recorded at the first call and replayed at the second) against
    ``diffusion.sampler.ddpm_loop``: ``y_0`` and the frames bit-equal, the
    launches equal (the recording call's plus one warm-up UNet evaluation),
-   the generator left at the same offset, seconds per chain. One ``flash_fwd``, and one dq and dkv, recorded alone in a graph:
-   bit-equal to the eager launch and within the flash gates of the plain
-   version.
+   the generator left at the same offset, seconds per chain. One ``flash_fwd``, and one dq and dkv, recorded alone in a graph, in
+   bfloat16 and in float32 (with the split pass): bit-equal to the eager
+   launch and within the flash gates of the plain version.
 
 Then one line ``{"kernels": [...]}`` with, per kernel, its route, source, the
-TPU kernel it replaces, its launches in phase 3, its error against the plain
-version, its time, the plain version's time and the card's bound for the same
-work and the library call's time where there is one; then the card's name and power limit; then, last,
+TPU kernel it replaces (the split pass: none), its launches in phase 3, its
+error against the plain version, its time, the plain version's time and the
+card's bound for the same work and the library call's time where there is
+one; then the card's name and power limit; then, last,
 ``{"ok": true, "device": {...}}``.
 
 Any failure — no GPU, a failed build, a refused launch, a mismatch, a missing
@@ -332,15 +338,26 @@ FLASH_KERNEL_NAMES = {
     "flash_bwd_dkv": ("flash_bwd_dkv_kernel", "flash_bwd_dkv_wgmma_kernel")}
 WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
                  "flash_bwd_dkv_wgmma_kernel")
+# the wgmma instantiations of each type: (kernel, D)
+WGMMA_INSTANTIATIONS = {
+    "bfloat16": [(k, d) for k in sorted(WGMMA_KERNELS) for d in (64, 128)],
+    "float32": [(k, d) for k in ("flash_bwd_dkv_wgmma_kernel",
+                                 "flash_fwd_wgmma_kernel")
+                for d in (64, 128)]}
+# the split pass of the float32 forward and dkv at D = 64 and 128, as the
+# profiler and ptxas name it
+SPLIT_KERNEL = "flash_split_kernel"
 # the head dims at which ptxas must report no spills for them
 NO_SPILL_HEAD_DIMS = (32, 64, 128)
 
 
 def flash_kernel_ms(events, name):
-    """Device ms of the CUDA kernels of flash wrapper `name` among profiler
-    events ({name: us})."""
+    """Device ms of the CUDA kernels of flash wrapper `name` (or of the
+    split pass, ``flash_split``) among profiler events ({name: us})."""
+    names = (SPLIT_KERNEL,) if name == "flash_split" \
+        else FLASH_KERNEL_NAMES[name]
     return sum(us for key, us in events.items()
-               if any(k + "<" in key for k in FLASH_KERNEL_NAMES[name])) / 1e3
+               if any(k + "<" in key for k in names)) / 1e3
 
 
 def describe_instantiation(mangled):
@@ -374,9 +391,11 @@ def launched_instantiations(fn):
         with open(path) as f:
             events = json.load(f)["traceEvents"]
     found = {}
+    flash = {k for ks in FLASH_KERNEL_NAMES.values() for k in ks}
     for event in events:
         m = re.search(r"(flash_\w+_kernel)<([^>]*)>", event.get("name", ""))
-        if m is None or event.get("cat") != "kernel":
+        if m is None or event.get("cat") != "kernel" \
+                or m.group(1) not in flash:
             continue
         dtype, *ints = (x.strip() for x in m.group(2).split(","))
         found[(m.group(1), "bfloat16" if "bfloat16" in dtype else "float32",
@@ -387,9 +406,8 @@ def launched_instantiations(fn):
 def flash_route(kernel, dtype):
     """The arithmetic route of CUDA kernel `kernel` on `dtype` operands
     ("bfloat16" or "float32")."""
-    if kernel in WGMMA_KERNELS:
-        return "wgmma-bf16"
-    return "mma-bf16" if dtype == "bfloat16" else "mma-3xtf32"
+    arith = "bf16" if dtype == "bfloat16" else "3xtf32"
+    return ("wgmma-" if kernel in WGMMA_KERNELS else "mma-") + arith
 
 
 def phase_build():
@@ -401,15 +419,20 @@ def phase_build():
     (dtype, D), {(wrapper, "float32" or "bfloat16", D): route}, read from
     the name of the kernel that launched. Fails if a kernel spills at
     D <= 128, if a wgmma kernel (the forward, dq and dkv in bfloat16 at
-    D = 64 and 128, all six present) lacks HGMMA or UTMALDG, or if another
-    flash kernel lacks HMMA."""
+    D = 64 and 128, the forward and dkv in float32 there, all ten present)
+    lacks HGMMA or UTMALDG or has its wgmmas serialised by ptxas (C7520),
+    if another flash kernel lacks HMMA, or if the split pass spills."""
     from pai_tpu_torch import kernels
     from pai_tpu_torch.kernels import flash_attention as fa
 
-    entries = {}
+    entries, serialised = {}, []
     for lib in ("flash_attention", "flash_attention_bwd"):
         entry = None
         for line in kernels.build_log(lib).splitlines():
+            m = re.search(r"wgmma.mma_async instructions are serialized .* "
+                          r"in the function '(\S+)'", line)
+            if m:
+                serialised.append(m.group(1))
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
                 found = describe_instantiation(m.group(1))
@@ -472,12 +495,13 @@ def phase_build():
                                                    e["template"]))
     check(len(rows) == 24, f"ptxas reported {len(rows)} flash kernel "
           "instantiations, expected 24 (3 kernels x 2 types x 4 head dims)")
-    wgmma = sorted((e["kernel"], e["template"][0]) for e in rows
-                   if e["kernel"] in WGMMA_KERNELS
-                   and e["dtype"] == "bfloat16")
-    check(wgmma == [(k, d) for k in sorted(WGMMA_KERNELS) for d in (64, 128)],
-          f"wgmma instantiations {wgmma}: expected the forward, dq and dkv "
-          "in bfloat16 at D = 64 and 128")
+    for dtype, want in WGMMA_INSTANTIATIONS.items():
+        wgmma = sorted((e["kernel"], e["template"][0]) for e in rows
+                       if e["kernel"] in WGMMA_KERNELS
+                       and e["dtype"] == dtype)
+        check(wgmma == want, f"{dtype} wgmma instantiations {wgmma}: "
+              f"expected {want}")
+    check(not serialised, f"ptxas serialised the wgmmas of {serialised}")
     for e in rows:
         d = e["template"][0]
         e["route"] = flash_route(e["kernel"], e["dtype"])
@@ -500,9 +524,44 @@ def phase_build():
     for e in ssim_rows:
         check(e.get("spill_stores") == 0 and e.get("spill_loads") == 0,
               f"SSIM kernel {e['kernel']} spills: {e}")
+    split_rows = split_ptxas(kernels.build_log("flash_split"))
+    check([e["d"] for e in split_rows] == [64, 128], f"ptxas reported the "
+          f"split pass at {[e['d'] for e in split_rows]}, expected D = 64 "
+          "and 128")
+    for e in split_rows:
+        check(e.get("spill_stores") == 0 and e.get("spill_loads") == 0,
+              f"the split pass spills: {e}")
     return {"phase": "build", "cuobjdump": have_cuobjdump,
             "kernel_build_seconds": kernels.build_seconds,
-            "instantiations": rows, "ssim": ssim_rows}, routes
+            "wgmma_serialised": serialised, "instantiations": rows,
+            "ssim": ssim_rows, "flash_split": split_rows}, routes
+
+
+def split_ptxas(log):
+    """Registers, spills and ptxas's resource line of the split pass at each
+    head dim, from the ``-Xptxas -v`` report of its library."""
+    rows, entry = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            d = re.search(SPLIT_KERNEL + r"ILi(\d+)E", m.group(1))
+            entry = {"kernel": SPLIT_KERNEL, "d": int(d.group(1))} \
+                if d else None
+            if entry:
+                rows.append(entry)
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            entry["spill_stores"] = int(m.group(1))
+            entry["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["registers"] = int(m.group(1))
+            entry["ptxas"] = line.split(":", 1)[-1].strip()
+    return sorted(rows, key=lambda e: e["d"])
 
 
 def ssim_ptxas(log):
@@ -959,6 +1018,76 @@ def phase_flash(device, routes):
     return results
 
 
+def split_bound(shape, modes):
+    """(bound_ms, "bytes") of one split pass: each operand read once and its
+    planes written once, over the memory rate (two flops an element)."""
+    from pai_tpu_torch.kernels.flash_attention import split_planes
+
+    b, h, t, d = shape
+    n = b * h * t * d * 4
+    return larger_bound(n * (len(modes) + split_planes(modes)),
+                        2 * b * h * t * d * len(modes), F32_FLOP_PER_S)
+
+
+def phase_split(device):
+    """The split pass of the float32 forward and dkv (their wgmma route at
+    D = 64 and 128) against its plain version on the card: bit for bit, at
+    the Palette paths' shapes and on packed views, its launch counted, timed
+    beside the plain version."""
+    from pai_tpu_torch import kernels
+    from pai_tpu_torch.kernels import flash_attention as fa
+
+    cases = [((2, 4, 16384, 64), "forward", fa.FORWARD_SPLIT),
+             ((2, 4, 4096, 128), "forward", fa.FORWARD_SPLIT),
+             ((4, 4, 16384, 64), "dkv", fa.DKV_SPLIT),
+             ((4, 4, 4096, 128), "dkv", fa.DKV_SPLIT)]
+    results = []
+    for seed, (shape, kind, modes) in enumerate(cases):
+        xs = random_qkv(shape, 120 + seed, device) + random_qkv(
+            shape, 130 + seed, device)[:1]
+        xs = xs[:len(modes)]
+        want = fa.flash_split_plain(xs, modes)
+        before = kernels.launch_counts["flash_split"]
+        got = fa.flash_split(xs, modes)
+        torch.cuda.synchronize()
+        check(kernels.launch_counts["flash_split"] == before + 1,
+              f"flash_split did not count its launch at {shape}")
+        check(got.shape == want.shape and torch.equal(got, want),
+              f"flash_split ({kind}) differs from plain at {shape}: "
+              f"{float((got - want).abs().max())}")
+        bound_ms, bound_by = split_bound(shape, modes)
+        results.append({
+            "shape": list(shape), "for": kind, "planes": got.shape[0],
+            "bit_equal": True, "max_abs_err": 0.0,
+            "ms": time_ms(lambda: fa.flash_split(xs, modes), samples=5,
+                          calls=3),
+            "plain_ms": time_ms(lambda: fa.flash_split_plain(xs, modes),
+                                samples=3, calls=1),
+            "kernel_us": device_kernel_us(
+                lambda: fa.flash_split(xs, modes), (SPLIT_KERNEL,),
+                calls=3),
+            "bound_ms": bound_ms, "bound_by": bound_by})
+        del xs, want, got
+    # q, k, v as views of one packed (N, T, heads, 3, D) tensor, as the
+    # attention block hands them to the forward
+    rng = np.random.default_rng(140)
+    packed = torch.from_numpy(rng.normal(0.0, 1.0, (2, 4096, 4, 3, 64)).astype(
+        np.float32)).to(device)
+    views = tuple(packed[:, :, :, i].permute(0, 2, 1, 3) for i in range(3))
+    check(torch.equal(fa.flash_split(views, fa.FORWARD_SPLIT),
+                      fa.flash_split_plain(tuple(v.contiguous()
+                                                 for v in views),
+                                           fa.FORWARD_SPLIT)),
+          "flash_split differs from plain on packed views")
+    expect_raises(ValueError, lambda: fa.flash_split(
+        random_qkv((1, 1, 256, 32), 141, device), fa.FORWARD_SPLIT),
+        "the split pass at D = 32")
+    emit({"phase": "kernels", "kernels": ["flash_split"],
+          "limits": {"bit_equal": True}, "packed_views_bit_equal": True,
+          "cases": results})
+    return results
+
+
 def blob_image(rng):
     """256x256 uint8: six Gaussian blobs with a little texture."""
     yy, xx = np.mgrid[0:SIZE, 0:SIZE].astype(np.float32) / SIZE
@@ -1362,6 +1491,10 @@ def phase_palette(device, workdir):
     check(launches["ssim_map"] == SSIM_MAP_LAUNCHES_PER_BATCH * n_batches,
           f"ssim_map launched {launches['ssim_map']} times, expected "
           f"{SSIM_MAP_LAUNCHES_PER_BATCH} x {n_batches}")
+    # float32 at D = 64 and 128: every forward launch splits its operands
+    check(launches["flash_split"] == launches["flash_fwd"],
+          f"flash_split launched {launches['flash_split']} times on the "
+          f"Palette path, expected one per flash_fwd ({launches['flash_fwd']})")
 
     rdir = os.path.join(reports_dir, "palette_smoke")
     for name in ("ssim", "psnr", "mse"):
@@ -1440,6 +1573,7 @@ def phase_palette(device, workdir):
         forward_ms = time_ms(lambda: unet(xb, yb, gb), samples=3, calls=2)
         events = device_profile(lambda: unet(xb, yb, gb))[0]
         flash_us = 1e3 * flash_kernel_ms(events, "flash_fwd")
+        split_us = 1e3 * flash_kernel_ms(events, "flash_split")
         top_events = sorted(events.items(), key=lambda kv: -kv[1])[:12]
         # how long the host takes to enqueue one forward, against how long
         # the device takes to finish it
@@ -1458,8 +1592,9 @@ def phase_palette(device, workdir):
           "chain_seconds_batch_1": chain_seconds_batch1,
           "unet_forward_ms_batch_2": forward_ms,
           "forward_flash_fwd_us": flash_us,
+          "forward_flash_split_us": split_us,
           "flash_share_of_forward":
-              flash_us / 1e3 / forward_ms if flash_us else None,
+              (flash_us + split_us) / 1e3 / forward_ms if flash_us else None,
           "forward_top_device_events_us": [[name[:80], us]
                                            for name, us in top_events],
           "forward_host_enqueue_ms": enqueue_ms,
@@ -1515,6 +1650,9 @@ BF16_CARD_CORR = 0.5
 # recomputation, and backward once
 TRAIN_LAUNCHES_PER_STEP = {"flash_fwd": 20, "flash_bwd_dq": 10,
                            "flash_bwd_dkv": 10}
+# float32: the forward and dkv each split their operands once per launch
+TRAIN_SPLIT_LAUNCHES_PER_STEP = (TRAIN_LAUNCHES_PER_STEP["flash_fwd"]
+                                 + TRAIN_LAUNCHES_PER_STEP["flash_bwd_dkv"])
 TRAIN_IMAGES, VAL_IMAGES, TRAIN_BATCH = 16, 2, 4
 PALETTE_PARAMETERS = 974_508_161
 # float32 weights and Adam's two moments (no EMA): what one slot holds
@@ -1922,7 +2060,8 @@ def phase_train(device, workdir):
     check(summary["steps"] == n_steps and len(steps) == n_steps,
           f"trained {summary['steps']} steps, expected {n_steps}")
     for i, entry in enumerate(steps):
-        for name, count in TRAIN_LAUNCHES_PER_STEP.items():
+        for name, count in (*TRAIN_LAUNCHES_PER_STEP.items(),
+                            ("flash_split", TRAIN_SPLIT_LAUNCHES_PER_STEP)):
             check(entry["launches"][name] == count,
                   f"step {i + 1} launched {name} {entry['launches'][name]} "
                   f"times, expected {count}")
@@ -1982,7 +2121,7 @@ def phase_train(device, workdir):
     events, busy_ms, span_ms = device_profile(
         lambda: step(state, batch.x, batch.y), calls=1)
     kernel_ms = {name: flash_kernel_ms(events, name)
-                 for name in TRAIN_LAUNCHES_PER_STEP}
+                 for name in (*TRAIN_LAUNCHES_PER_STEP, "flash_split")}
     step_ms = step_event_ms(lambda: step(state, batch.x, batch.y), 2)
     top_events = sorted(events.items(), key=lambda kv: -kv[1])[:12]
 
@@ -4410,7 +4549,8 @@ GRAPH_IMAGES, GRAPH_BATCH = 80, 8
 GRAPH_PIX2PIX_EPOCHS, GRAPH_ATTENTION_EPOCHS = 2, 1
 GRAPH_PALETTE_BATCH, GRAPH_PALETTE_STEPS = 4, 10
 GRAPH_CHAIN_BATCH = 2
-# one captured launch each, at the bf16-mixed Palette path's shapes
+# one captured launch each, at the Palette paths' shapes (in bfloat16 and
+# float32)
 GRAPH_FLASH_SHAPES = {"forward": (2, 4, 16384, 64),
                       "backward": (4, 4, 4096, 128)}
 
@@ -4554,7 +4694,8 @@ def chunk_profile(device, run, k):
 def graph_flash_launches(device):
     """One flash_fwd, and one dq and dkv, each recorded alone in a CUDA
     graph and replayed: bit-equal to the eager launch, within the flash
-    gates of the plain version, one launch counted per replay."""
+    gates of the plain version, one launch counted per replay; in bfloat16
+    and in float32 (whose forward and dkv record their split pass too)."""
     from pai_tpu_torch import kernels
     from pai_tpu_torch.kernels import flash_attention as fa
     from pai_tpu_torch.utils.graphs import CapturedGraph, GraphStream
@@ -4617,6 +4758,74 @@ def graph_flash_launches(device):
         entry[f"{tag}_bf16_ulps"] = ulps
         entry[f"{tag}_max_abs_err"] = err
     out["flash_backward"] = entry
+    out.update(graph_flash_launches_float32(device, side))
+    return out
+
+
+def graph_flash_launches_float32(device, side):
+    """graph_flash_launches' checks in float32 at the float32 Palette paths'
+    shapes (GRAPH_FLASH_SHAPES): the forward and dkv on wgmma, each after
+    its split pass, recorded in the graph with it."""
+    from pai_tpu_torch import kernels
+    from pai_tpu_torch.kernels import flash_attention as fa
+    from pai_tpu_torch.utils.graphs import CapturedGraph
+
+    out = {}
+    q, k, v = random_qkv(GRAPH_FLASH_SHAPES["forward"], 913, device)
+    with side:
+        fa.flash_attention(q, k, v, emit_lse=True)
+    graph = CapturedGraph(lambda: fa.flash_attention(q, k, v, emit_lse=True),
+                          side.stream)
+    before = dict(kernels.launch_counts)
+    graph.replay()
+    for name in ("flash_fwd", "flash_split"):
+        check(kernels.launch_counts[name] == before[name] + 1,
+              f"a replay of a captured float32 {name} did not count one "
+              "launch")
+    o_eager, lse_eager = fa.flash_attention(q, k, v, emit_lse=True)
+    o_graph, lse_graph = graph.output
+    torch.cuda.synchronize()
+    check(torch.equal(o_graph, o_eager) and torch.equal(lse_graph, lse_eager),
+          "captured float32 flash_fwd differs from its eager launch")
+    want_o, want_lse = fa.flash_attention_plain(q, k, v, emit_lse=True)
+    err = float((o_graph - want_o).abs().max())
+    lse_err = float((lse_graph - want_lse).abs().max())
+    check(err <= FLASH_TOL and lse_err <= FLASH_LSE_TOL,
+          f"captured float32 flash_fwd against plain: {err}, lse {lse_err}")
+    out["flash_fwd_float32"] = {
+        "shape": list(q.shape), "max_abs_err": err,
+        "lse_max_abs_err": lse_err, "eager_bit_equal": True,
+        **graph.stats()}
+    del graph, o_graph, lse_graph, want_o, want_lse, q, k, v
+
+    shape = GRAPH_FLASH_SHAPES["backward"]
+    q, k, v = random_qkv(shape, 914, device)
+    do = random_qkv(shape, 915, device)[0]
+    o, lse = fa.flash_attention(q, k, v, emit_lse=True)
+    with side:
+        fa.flash_attention_backward(q, k, v, o, lse, do)
+    graph = CapturedGraph(
+        lambda: fa.flash_attention_backward(q, k, v, o, lse, do),
+        side.stream)
+    before = dict(kernels.launch_counts)
+    graph.replay()
+    for name in ("flash_bwd_dq", "flash_bwd_dkv", "flash_split"):
+        check(kernels.launch_counts[name] == before[name] + 1,
+              f"a replay of a captured float32 backward did not count one "
+              f"{name} launch")
+    eager = fa.flash_attention_backward(q, k, v, o, lse, do)
+    want = fa.flash_attention_backward_plain(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    entry = {"shape": list(shape), "eager_bit_equal": True, **graph.stats()}
+    for tag, g, e, w in zip(("dq", "dk", "dv"), graph.output, eager, want):
+        check(torch.equal(g, e), f"captured float32 flash backward {tag} "
+              "differs from its eager launch")
+        err = float((g - w).abs().max())
+        limit = FLASH_BWD_TOL * float(w.abs().max())
+        check(err <= limit, f"captured float32 flash backward {tag} against "
+              f"plain: {err} > {limit}")
+        entry[f"{tag}_max_abs_err"] = err
+    out["flash_backward_float32"] = entry
     return out
 
 
@@ -4844,7 +5053,7 @@ def kernels_line(cases, report_batch, launches, flash_cases,
                  palette_launches, bwd_cases, train_launches, gan_launches,
                  family_launches, family_report_launches,
                  interop_launches, parallel_launches, bf16_family_launches,
-                 bf16_family_report_launches, graph_launches):
+                 bf16_family_report_launches, graph_launches, split_cases):
     described = {
         "ssim_map": ("pai_tpu_torch/kernels/csrc/ssim.cu",
                      "pai_tpu/kernels/ssim_pallas.py:137"),
@@ -4957,6 +5166,22 @@ def kernels_line(cases, report_batch, launches, flash_cases,
         out[-1]["launches_sp2_palette_path"] = \
             parallel_launches["palette_sp2"][name]
         out[-1]["launches_graph_training_path"] = graph_launches[name]
+    main = split_cases[0]  # the forward's operands at (2,4,16384,64)
+    out.append({
+        "name": "flash_split", "route": "cuda",
+        "source": "pai_tpu_torch/kernels/csrc/flash_split.cu",
+        "replaces": "none: the port's own split of float32 operands into "
+                    "TF32 hi and lo planes for the wgmma kernels that "
+                    "replace pai_tpu/kernels/flash_attention.py:148 and :316",
+        "launches": palette_launches["flash_split"],
+        "max_abs_err": max(e["max_abs_err"] for e in split_cases),
+        "shape": main["shape"], "for": main["for"], "ms": main["ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": None,  # no single PyTorch call writes these planes
+        "kernel_us": main["kernel_us"],
+        "launches_training_path": train_launches["flash_split"],
+        "other_shapes": split_cases[1:]})
     return {"kernels": out}
 
 
@@ -4996,6 +5221,7 @@ def main():
     emit(build)
     cases, report_batch = timed("kernels", phase_kernels, device)
     flash_cases = timed("flash", phase_flash, device, routes)
+    split_cases = timed("flash_split", phase_split, device)
     bwd_cases = timed("flash_backward", phase_flash_backward, device, routes)
     with tempfile.TemporaryDirectory(prefix="pai_smoke_") as workdir:
         launches = timed("report", phase_report, device, workdir)
@@ -5031,9 +5257,11 @@ def main():
     for name in ("ssim_map", "ssim_scalar"):
         check(launches[name] > 0,
               f"kernel {name} was not launched on the Pix2Pix path")
-    for name in ("flash_fwd", "ssim_map"):
+    for name in ("flash_fwd", "flash_split", "ssim_map"):
         check(palette_launches[name] > 0,
               f"kernel {name} was not launched on the Palette path")
+    check(train_launches["flash_split"] > 0,
+          "kernel flash_split was not launched on the training path")
     check(gan_launches["ssim_scalar"] > 0,
           "kernel ssim_scalar was not launched on the GAN training path")
     check(family_launches["ssim_scalar"] > 0,
@@ -5060,7 +5288,7 @@ def main():
                       gan_launches, family_launches, family_report_launches,
                       interop_launches, parallel_launches,
                       bf16_family_launches, bf16_family_report_launches,
-                      graph_launches))
+                      graph_launches, split_cases))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

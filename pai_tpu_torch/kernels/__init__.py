@@ -45,11 +45,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # One library per source file: name -> source under csrc/.
 SOURCES = {"ssim": "ssim.cu", "flash_attention": "flash_attention.cu",
-           "flash_attention_bwd": "flash_attention_bwd.cu"}
+           "flash_attention_bwd": "flash_attention_bwd.cu",
+           "flash_split": "flash_split.cu"}
 
 launch_counts: Dict[str, int] = {"ssim_map": 0, "ssim_scalar": 0,
                                  "flash_fwd": 0, "flash_bwd_dq": 0,
-                                 "flash_bwd_dkv": 0}
+                                 "flash_bwd_dkv": 0, "flash_split": 0}
 
 # Floating-point operations of the kernels launched so far that PyTorch's
 # ``FlopCounterMode`` cannot see (a ``ctypes`` launch is opaque to it). A

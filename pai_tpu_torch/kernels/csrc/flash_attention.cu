@@ -15,17 +15,19 @@
 // products run on the tensor cores, by one of two routes that launch_for_d
 // fixes by (dtype, D):
 //
-// * wgmma (bfloat16 at D = 64 and D = 128, flash_fwd_wgmma_kernel, the
-//   bf16-mixed Palette path's shapes): Hopper's warpgroup products with TMA
-//   tile loads (flash_wgmma.cuh). P enters P V as two bf16 terms from
-//   registers; its design is described above the kernel.
-// * mma.sync (everything else, flash_fwd_kernel): warp-level products
+// * wgmma (D = 64 and D = 128, flash_fwd_wgmma_kernel, the Palette paths'
+//   shapes): Hopper's warpgroup products with TMA tile loads
+//   (flash_wgmma.cuh). bfloat16: P enters P V as two bf16 terms from
+//   registers. float32: 3xTF32 (hi*hi + hi*lo + lo*hi, float32 accuracy at
+//   up to a third of the TF32 rate: 165 TFLOP/s against the CUDA cores'
+//   67) on m64nNk8. wgmma takes TF32 operands only K-major, so the split
+//   pass (flash_split.cu) writes Q, K and V^T as TF32 hi and lo planes once
+//   per call, V^T with each 8 keys permuted to match P's fragment, and P
+//   enters P V from registers as TF32 hi and lo. Each design is described
+//   above its kernel.
+// * mma.sync (D = 32 and 256, flash_fwd_kernel): warp-level products
 //   (flash_mma.cuh), bfloat16 operands as bf16 m16n8k16 (P as two bf16
-//   terms), float32 operands as 3xTF32 m16n8k8, which keeps float32
-//   accuracy at up to a third of the TF32 rate (165 TFLOP/s against the
-//   CUDA cores' 67). wgmma takes TF32 operands only K-major, so a 3xTF32
-//   P V there would need V transposed and split into hi and lo in shared
-//   memory on every tile: not done yet.
+//   terms), float32 operands as 3xTF32 m16n8k8.
 //
 // The mma.sync route:
 // * One block owns one (batch*head, BQ-row query tile) and loops over BK-row
@@ -52,11 +54,11 @@
 //   once per tile into (hi, lo) pairs in shared memory instead, the kernel
 //   was slower: the saved conversions came back as moves into the mma
 //   operand registers, plus a pass and a barrier per tile; PERF.md).
-// * Tiles per D (BQ x BK; threads 2 BQ): 128 x 64 up to D = 128; at D = 256
+// * Tiles per D (BQ x BK; threads 2 BQ): 128 x 64 at D = 32; at D = 256
 //   64 x 32 for float32 (its Q tile and K/V ring need 200 KB) and 64 x 16
-//   for bfloat16. One block per SM: with two, D = 64 spills. Up to D = 128
-//   ptxas spills nothing; at D = 256, where the accumulator alone takes 128
-//   of a thread's 255 registers, both instantiations spill (PERF.md).
+//   for bfloat16. One block per SM. At D = 32 ptxas spills nothing; at
+//   D = 256, where the accumulator alone takes 128 of a thread's 255
+//   registers, both instantiations spill (PERF.md).
 //
 // Both routes: q, k, v and o are addressed by element strides for batch, head
 // and row (the last dimension is contiguous; the other strides are multiples
@@ -407,7 +409,8 @@ __device__ __forceinline__ void fwd_consume(const FlashParams& p,
 
         // ---- O += P V over this tile's keys, in partials of kPnKeys
         fw::mbar_wait(bar.v(s), parity);
-        fw::add_partials<BK, L::kBoxes>(acc, p_hi, p_lo, v_s, L::kKvBox);
+        fw::add_partials_bf16<BK, L::kBoxes>(acc, p_hi, p_lo, v_s,
+                                            L::kKvBox);
         __syncwarp();
         if (lane == 0) fw::mbar_arrive(bar.empty(s));
     }
@@ -422,7 +425,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
                        const FlashParams p) {
-    static_assert(sizeof(T) == 2, "the wgmma route takes bfloat16");
+    static_assert(sizeof(T) == 2, "the bf16 wgmma route");
     using L = WgmmaLayout<D, BK, STAGES>;
     namespace fw = flash_wgmma;
     extern __shared__ unsigned char smem_raw[];
@@ -471,13 +474,263 @@ cudaError_t launch_wgmma(const FlashParams& p, int batch,
         err = flash_wgmma::encode_operand(&tm_v, p.v, batch, p.heads, p.t, D,
                                           p.v_sb, p.v_sh, p.v_st, BK);
     if (err != cudaSuccess) return err;
-    auto kernel = flash_fwd_wgmma_kernel<__nv_bfloat16, D, BK, STAGES>;
+    void (*kernel)(const CUtensorMap, const CUtensorMap, const CUtensorMap,
+                   const FlashParams) =
+        flash_fwd_wgmma_kernel<__nv_bfloat16, D, BK, STAGES>;
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
     if (err != cudaSuccess) return err;
     const dim3 grid(p.t / L::kBQ, batch * p.heads);
     kernel<<<grid, flash_wgmma::kThreads, L::kBytes, stream>>>(tm_q, tm_k,
                                                                tm_v, p);
+    return cudaGetLastError();
+}
+
+// ------------------------------------------------- wgmma route, float32
+// float32 at D = 64 and D = 128 (the CLI default's Palette shapes) as
+// 3xTF32 on wgmma m64nNk8 (flash_wgmma.cuh): the bf16 route's block (two
+// warpgroups of 64 query rows, thread 0 issuing TMA), its softmax step and
+// epilogue (online_softmax_fma, store_output) and its partial sums
+// (add_partials), with every operand a pair of TF32 hi and lo tiles. TF32
+// operands are K-major only, so the kernel reads the planes of the split
+// pass (flash_split.cu), written once per call: Q and K hi and lo, K-major,
+// and V^T hi and lo (D rows of keys, each 8 keys permuted to match P's
+// fragment). Thread 0 loads Q hi and lo once, then the key tiles' groups
+// in turn, K (hi and lo) of tile i as group 2i and V^T of tile i as group
+// 2i + 1, group n into slot n % SLOTS of a ring whose slots each hold one
+// group; a slot is `full` once its bytes have landed and `empty` once
+// every warp is done with it (one arrival per warp). Per key tile a
+// warpgroup
+//   * waits for K and runs S = Q K^T as 3 D/8 SS wgmmas, BK wide (Q lo K hi,
+//     Q hi K lo, Q hi K hi), releasing K's slot once they are done;
+//   * takes the online-softmax step in registers (online_softmax_fma);
+//   * turns P into TF32 hi (in place) and lo, waits for V^T and adds P V
+//     into O in partials of 32 keys per 64 columns of O, each 12 RS
+//     wgmmas (P from registers as the A operand), two in flight
+//     (add_partials_tf32), releasing V's slot.
+// At the start of each tile thread 0 loads this tile's K and V^T (waiting,
+// if need be, for their slots to be released) and every later group whose
+// slot every warp has released (without waiting). It issues nothing in the
+// middle of a tile: code that only thread 0 runs, between the
+// instructions that write P's registers and the wgmmas that read them,
+// made ptxas serialise the kernel's wgmmas (C7520).
+// What bounds it: besides the products (3 terms each), the bytes: each
+// tile's four K and V planes come from L2 for every 128 query rows, some
+// 96 TF32 operations per byte. Tiles (BK, SLOTS): D = 64 (64, 5): Q 64 KB,
+// a slot 32 KB; D = 128 (32, 3): Q 128 KB, a slot 32 KB (larger key tiles
+// leave fewer than three slots). Tried and dropped
+// (tools/flash_f32_probe.py against a checkout of this design; PERF.md):
+// the next tile's S issued before this tile's softmax, into a second set
+// of S registers (FA3's overlap within a warpgroup), no faster at D = 64
+// and slower at D = 128; warp 0 polling for free slots once more in each
+// tile, after S, no faster at D = 128 (and serialised at D = 64).
+template <int D, int BK, int SLOTS> struct Tf32FwdLayout {
+    static constexpr int kBQ = 128;
+    static constexpr int kQBox = kBQ * flash_wgmma::kRowBytes;  // bytes
+    static constexpr int kQPlane = kBQ * D * 4;
+    static constexpr int kKBox = BK * flash_wgmma::kRowBytes;  // BK rows
+    static constexpr int kVBox = D * flash_wgmma::kRowBytes;   // 32 keys
+    static constexpr int kPlane = BK * D * 4;  // K hi (K lo, V^T hi, lo)
+    static constexpr int kSlot = 2 * kPlane;
+    static constexpr int kQ = 0;               // Q hi, then Q lo
+    static constexpr int kSlots = 2 * kQPlane;
+    static constexpr int kBar = kSlots + SLOTS * kSlot;
+    // barriers: Q, then full and empty of each slot
+    static constexpr int kBytes = kBar + 8 * (1 + 2 * SLOTS) + 1024;
+    static_assert(kBytes <= 232448, "shared memory of one block");
+};
+
+template <int SLOTS> struct SlotRing {
+    uint32_t base;
+    __device__ uint32_t once() const { return base; }
+    __device__ uint32_t full(int s) const { return base + 8 * (1 + s); }
+    __device__ uint32_t empty(int s) const {
+        return base + 8 * (1 + SLOTS + s);
+    }
+};
+
+// The tensor maps of the six planes: Q hi, Q lo, K hi, K lo, V^T hi, V^T lo.
+struct alignas(64) Tf32FwdMaps {
+    CUtensorMap m[6];
+};
+
+// Thread 0's loads into the slot ring: group `next` on, those whose slot
+// every warp has released; it waits for a slot only while `next <= need`.
+template <int D, int BK, int SLOTS>
+__device__ __forceinline__ void fwd_tf32_produce(const Tf32FwdMaps& maps,
+                                                 uint32_t base,
+                                                 SlotRing<SLOTS> bar,
+                                                 int& next, int groups,
+                                                 int need, int h, int b) {
+    using L = Tf32FwdLayout<D, BK, SLOTS>;
+    namespace fw = flash_wgmma;
+    for (; next < groups; ++next) {
+        const int s = next % SLOTS;
+        if (next >= SLOTS) {
+            const uint32_t parity = ((next / SLOTS) - 1) & 1;
+            if (next <= need)
+                fw::mbar_wait(bar.empty(s), parity);
+            else if (!fw::mbar_try_wait(bar.empty(s), parity))
+                return;
+        }
+        const uint32_t dst = base + L::kSlots + s * L::kSlot;
+        const int tile = next >> 1;
+        fw::mbar_expect_tx(bar.full(s), L::kSlot);
+        for (int plane = 0; plane < 2; ++plane) {
+            if ((next & 1) == 0) {  // K: D/32 boxes of BK rows
+                for (int box = 0; box < D / fw::kTf32BoxCols; ++box)
+                    fw::tma_load(dst + plane * L::kPlane + box * L::kKBox,
+                                 &maps.m[2 + plane], bar.full(s),
+                                 box * fw::kTf32BoxCols, tile * BK, h, b);
+            } else {  // V^T: BK/32 boxes of D rows
+                for (int box = 0; box < BK / fw::kTf32BoxCols; ++box)
+                    fw::tma_load(dst + plane * L::kPlane + box * L::kVBox,
+                                 &maps.m[4 + plane], bar.full(s),
+                                 tile * BK + box * fw::kTf32BoxCols, 0, h,
+                                 b);
+            }
+        }
+    }
+}
+
+// A warpgroup: query rows 64 cw .. 64 cw + 63 of the tile.
+template <typename T, int D, int BK, int SLOTS>
+__device__ __forceinline__ void fwd_consume_tf32(const FlashParams& p,
+                                                 const Tf32FwdMaps& maps,
+                                                 uint32_t base,
+                                                 SlotRing<SLOTS> bar, int bh,
+                                                 int q0, int cw,
+                                                 int n_tiles) {
+    using L = Tf32FwdLayout<D, BK, SLOTS>;
+    namespace fw = flash_wgmma;
+    constexpr int KT = BK / 8;   // 8-column tiles of S
+    constexpr int DT = D / 8;    // 8-column tiles of O
+    const int lane = threadIdx.x & 31;
+    const int warp = (threadIdx.x >> 5) & 3;  // within the warpgroup
+    const int h = bh % p.heads;
+    const int b = bh / p.heads;
+    const bool producer = threadIdx.x == 0;
+    const int groups = 2 * n_tiles;
+    int next = SLOTS < groups ? SLOTS : groups;  // loaded before the loop
+    const uint32_t q_s = base + L::kQ + cw * 64 * fw::kRowBytes;
+
+    float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8
+    float l_run[2] = {0.0f, 0.0f};            // this thread's partial sums
+    float acc[DT][4];
+#pragma unroll
+    for (int i = 0; i < DT; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
+
+    fw::mbar_wait(bar.once(), 0);
+    for (int tile = 0; tile < n_tiles; ++tile) {
+        const int nk = 2 * tile;  // K's group; V^T's is nk + 1
+        const int ks = nk % SLOTS;
+        const int vs = (nk + 1) % SLOTS;
+        const uint32_t k_t = base + L::kSlots + ks * L::kSlot;
+        const uint32_t v_t = base + L::kSlots + vs * L::kSlot;
+        if (producer)  // this tile's K and V^T, and what slots are free
+            fwd_tf32_produce<D, BK, SLOTS>(maps, base, bar, next, groups,
+                                           nk + 1, h, b);
+
+        // ---- S = Q K^T, 3xTF32
+        float sc[KT][4];
+        fw::mbar_wait(bar.full(ks), (nk / SLOTS) & 1);
+        fw::wgmma_fence();
+        fw::ss_3xtf32<BK, D>(sc, fw::opaque(q_s), L::kQBox, L::kQPlane, k_t,
+                             L::kKBox, L::kPlane);
+        fw::wgmma_commit();
+        fw::wgmma_wait<0>();
+        fw::fence_regs(sc);
+        __syncwarp();
+        if (lane == 0) fw::mbar_arrive(bar.empty(ks));
+
+        online_softmax_fma<KT, DT>(sc, m_run, l_run, acc, p.logit_scale);
+
+        // ---- P as TF32 hi (in place) and lo, then O += P V
+        float p_lo[KT][4];
+        fw::split_tf32_tiles(sc, sc, p_lo);
+        fw::mbar_wait(bar.full(vs), ((nk + 1) / SLOTS) & 1);
+        fw::add_partials_tf32<BK, D / 64, fw::kRowBytes>(
+            acc, sc, p_lo, v_t, v_t + L::kPlane, L::kVBox);
+        __syncwarp();
+        if (lane == 0) fw::mbar_arrive(bar.empty(vs));
+    }
+
+    store_output<T, DT>(p, bh, q0 + 64 * cw + 16 * warp, acc, m_run, l_run,
+                        lane);
+}
+
+template <typename T, int D, int BK, int SLOTS>
+__global__ void __launch_bounds__(flash_wgmma::kThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ Tf32FwdMaps maps,
+                       const FlashParams p) {
+    static_assert(sizeof(T) == 4, "the float32 wgmma route");
+    using L = Tf32FwdLayout<D, BK, SLOTS>;
+    namespace fw = flash_wgmma;
+    extern __shared__ unsigned char smem_raw[];
+    const uint32_t base = smem_addr(fw::align_1024(smem_raw));
+    const SlotRing<SLOTS> bar{base + L::kBar};
+    const int bh = blockIdx.y;
+    const int q0 = blockIdx.x * L::kBQ;
+    const int n_tiles = p.t / BK;
+
+    if (threadIdx.x == 0) {
+        fw::mbar_init(bar.once(), 1);
+        for (int s = 0; s < SLOTS; ++s) {
+            fw::mbar_init(bar.full(s), 1);
+            fw::mbar_init(bar.empty(s), 8);  // every warp
+        }
+        fw::fence_barrier_init();
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {  // Q hi and lo, and the first SLOTS groups
+        const int h = bh % p.heads;
+        const int b = bh / p.heads;
+        fw::mbar_expect_tx(bar.once(), 2 * L::kQPlane);
+        for (int plane = 0; plane < 2; ++plane)
+            for (int box = 0; box < D / fw::kTf32BoxCols; ++box)
+                fw::tma_load(base + L::kQ + plane * L::kQPlane
+                                 + box * L::kQBox,
+                             &maps.m[plane], bar.once(),
+                             box * fw::kTf32BoxCols, q0, h, b);
+        int next = 0;
+        fwd_tf32_produce<D, BK, SLOTS>(maps, base, bar, next, 2 * n_tiles,
+                                       SLOTS - 1, h, b);
+    }
+    // the warpgroup as a value ptxas sees is the same across a warp (as
+    // the float32 dkv must take it, flash_attention_bwd.cu)
+    fwd_consume_tf32<T, D, BK, SLOTS>(
+        p, maps, base, bar, bh, q0,
+        __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0), n_tiles);
+}
+
+// planes: the split pass's six (B, H, T, D) float32 planes, in the order of
+// Tf32FwdMaps.
+template <int D, int BK, int SLOTS>
+cudaError_t launch_wgmma_tf32(const FlashParams& p, const float* planes,
+                              int batch, cudaStream_t stream) {
+    using L = Tf32FwdLayout<D, BK, SLOTS>;
+    namespace fw = flash_wgmma;
+    if (planes == nullptr) return cudaErrorInvalidValue;
+    const long long n = static_cast<long long>(batch) * p.heads * p.t * D;
+    Tf32FwdMaps maps;
+    cudaError_t err = cudaSuccess;
+    for (int i = 0; i < 6 && err == cudaSuccess; ++i) {
+        const bool vt = i >= 4;  // V^T: (B, H, D, T)
+        const int box_rows = i < 2 ? L::kBQ : (vt ? D : BK);
+        err = fw::encode_plane(&maps.m[i], planes + i * n, batch, p.heads,
+                               vt ? D : p.t, vt ? p.t : D, fw::kTf32BoxCols,
+                               box_rows);
+    }
+    if (err != cudaSuccess) return err;
+    void (*kernel)(const Tf32FwdMaps, const FlashParams) =
+        flash_fwd_wgmma_kernel<float, D, BK, SLOTS>;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(p.t / L::kBQ, batch * p.heads);
+    kernel<<<grid, fw::kThreads, L::kBytes, stream>>>(maps, p);
     return cudaGetLastError();
 }
 
@@ -494,8 +747,8 @@ cudaError_t launch(const FlashParams& p, int batch, cudaStream_t stream) {
 }
 
 template <typename T>
-cudaError_t launch_for_d(const FlashParams& p, int batch, int d,
-                         cudaStream_t stream) {
+cudaError_t launch_for_d(const FlashParams& p, const float* planes, int batch,
+                         int d, cudaStream_t stream) {
     constexpr bool kBf16 = sizeof(T) == 2;
     switch (d) {
         case 32: return launch<T, 32, 128, 64>(p, batch, stream);
@@ -503,12 +756,13 @@ cudaError_t launch_for_d(const FlashParams& p, int batch, int d,
             if constexpr (kBf16)
                 return launch_wgmma<64, 128, 3>(p, batch, stream);
             else
-                return launch<T, 64, 128, 64>(p, batch, stream);
+                return launch_wgmma_tf32<64, 64, 5>(p, planes, batch, stream);
         case 128:
             if constexpr (kBf16)
                 return launch_wgmma<128, 64, 3>(p, batch, stream);
             else
-                return launch<T, 128, 128, 64>(p, batch, stream);
+                return launch_wgmma_tf32<128, 32, 3>(p, planes, batch,
+                                                     stream);
         case 256:
             if constexpr (kBf16)
                 return launch<T, 256, 64, 16>(p, batch, stream);
@@ -522,7 +776,10 @@ cudaError_t launch_for_d(const FlashParams& p, int batch, int d,
 
 // dtype: 0 float32, 1 bfloat16. t must be a multiple of 128, the query tile
 // (64 at d = 256 divides it). Strides in elements, multiples of 16 bytes; the
-// last dimension of q, k, v and o is contiguous. lse may be null. Launches on
+// last dimension of q, k, v and o is contiguous. lse may be null. `planes`:
+// for float32 at d = 64 and 128 the split pass's planes of q, k (K-major)
+// and v (transposed), (6, batch, heads, t, d) (pai_flash_split), which that
+// route reads instead of q, k and v; ignored otherwise. Launches on
 // `stream`, does not synchronise, allocates nothing; returns the CUDA error
 // code.
 extern "C" int pai_flash_fwd(
@@ -531,7 +788,8 @@ extern "C" int pai_flash_fwd(
     long long q_sb, long long q_sh, long long q_st,
     long long k_sb, long long k_sh, long long k_st,
     long long v_sb, long long v_sh, long long v_st,
-    long long o_sb, long long o_sh, long long o_st, void* stream) {
+    long long o_sb, long long o_sh, long long o_st, const float* planes,
+    void* stream) {
     if (batch <= 0 || heads <= 0 || t <= 0 || t % 128 != 0 ||
         static_cast<long long>(batch) * heads > 65535)
         return static_cast<int>(cudaErrorInvalidValue);
@@ -546,9 +804,9 @@ extern "C" int pai_flash_fwd(
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err;
     if (dtype == 0)
-        err = launch_for_d<float>(p, batch, d, s);
+        err = launch_for_d<float>(p, planes, batch, d, s);
     else if (dtype == 1)
-        err = launch_for_d<__nv_bfloat16>(p, batch, d, s);
+        err = launch_for_d<__nv_bfloat16>(p, planes, batch, d, s);
     else
         err = cudaErrorInvalidValue;
     return static_cast<int>(err);

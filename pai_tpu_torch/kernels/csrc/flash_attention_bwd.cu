@@ -12,8 +12,8 @@
 //     dQ = s^2 dS K                      flash_bwd_dq_kernel, and at bf16
 //                                        D = 64 and 128
 //                                        flash_bwd_dq_wgmma_kernel
-//     dV = P^T dO,  dK = s^2 dS^T Q      flash_bwd_dkv_kernel, and at bf16
-//                                        D = 64 and 128
+//     dV = P^T dO,  dK = s^2 dS^T Q      flash_bwd_dkv_kernel, and at
+//                                        D = 64 and 128 (bf16 and float32)
 //                                        flash_bwd_dkv_wgmma_kernel
 //
 // Operands are float or bfloat16; P and dS are float32 and every sum is
@@ -22,12 +22,15 @@
 // What bounds them on an H100: operations. dq does three products of
 // 2*T^2*D per head (6*B*H*T^2*D), dkv four (8*B*H*T^2*D), against some
 // 8*B*H*T*D elements moved. So every product of both kernels runs on the
-// tensor cores, P and dS (float32 values) as two bf16 terms: both kernels in
-// bfloat16 at D = 64 and D = 128 (the bf16-mixed Palette path's shapes) on
-// Hopper's warpgroup wgmma with TMA tile loads (flash_wgmma.cuh), everything
-// else on warp-level mma.sync (flash_mma.cuh): bf16 m16n8k16 for bfloat16
-// operands, 3xTF32 m16n8k8 for float32 ones (float32 accuracy, never TF32
-// alone). launch_for_d fixes the route by (dtype, D).
+// tensor cores, bfloat16 operands with P and dS (float32 values) as two
+// bf16 terms, float32 operands as 3xTF32 (float32 accuracy, never TF32
+// alone). On Hopper's warpgroup wgmma with TMA tile loads
+// (flash_wgmma.cuh): both kernels in bfloat16 at D = 64 and D = 128 (the
+// bf16-mixed Palette path's shapes) and dkv in float32 there too (the CLI
+// default's; on the split pass's TF32 hi and lo planes, flash_split.cu).
+// Everything else on warp-level mma.sync (flash_mma.cuh): bf16 m16n8k16
+// for bfloat16 operands, 3xTF32 m16n8k8 for float32 ones. launch_for_d
+// fixes the route by (dtype, D).
 //
 // * Each output tile has exactly one writer, as on the TPU: dq's block owns
 //   one (batch*head, query tile) and loops over the K/V tiles; dkv's block
@@ -573,8 +576,8 @@ __device__ __forceinline__ void dkv_consume(const BwdParams& p,
 #pragma unroll
         for (int i = 0; i < QT / 2; ++i)
             fw::split_step(sc, i, a_hi[i], a_lo[i]);
-        fw::add_partials<BQ, L::kBoxes>(acc, a_hi, a_lo,
-                                        wg == 0 ? do_s : q_s, L::kQBox);
+        fw::add_partials_bf16<BQ, L::kBoxes>(acc, a_hi, a_lo,
+                                             wg == 0 ? do_s : q_s, L::kQBox);
         __syncwarp();
         if (lane == 0) fw::mbar_arrive(bar.empty(s));
     }
@@ -598,7 +601,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_v,
                            const __grid_constant__ CUtensorMap tm_do,
                            const BwdParams p) {
-    static_assert(sizeof(T) == 2, "the wgmma route takes bfloat16");
+    static_assert(sizeof(T) == 2, "the bf16 wgmma route");
     using L = DkvWgmmaLayout<D, BQ, STAGES>;
     namespace fw = flash_wgmma;
     extern __shared__ unsigned char smem_raw[];
@@ -639,6 +642,320 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     dkv_consume<T, D, BQ, STAGES>(p, &tm_q, &tm_do, smem, bar, bh, k0,
                                   threadIdx.x >> 7, n_tiles);
+}
+
+// ---------------------------------------------- dK, dV: wgmma, float32
+// float32 at D = 64 and D = 128 (the CLI default's Palette training shapes)
+// as 3xTF32 on wgmma m64nNk8: the bf16 route's block and split of the
+// products between its two warpgroups, every operand a pair of TF32 hi
+// and lo tiles from the split pass's planes (flash_split.cu): K, V, Q and
+// dO K-major, Q^T and dO^T (D rows of queries, each 8 permuted to match
+// the accumulator's fragment) for the two products that sum over queries.
+// One block owns 64 keys of one batch*head:
+//   warpgroup 0:  S^T = K Q^T          SS, A K, B Q (hi, lo)
+//                 P^T = exp2(s^2 log2(e) S^T - lse log2(e)) -> shared
+//                 dV += P^T dO         RS, A P^T, B dO^T (hi, lo)
+//   warpgroup 1:  dP^T = V dO^T        SS, A V, B dO (hi, lo)
+//                 dS^T = P^T (dP^T - delta)
+//                 dK += dS^T Q         RS, A dS^T, B Q^T (hi, lo)
+// each product 3 terms a step (lo x hi, hi x lo, hi x hi), the RS ones in
+// partials of 32 queries (or BQ, if fewer) per 64 columns, two in flight
+// (add_partials_tf32). Each warpgroup loads what it alone reads, by TMA
+// issued by its first thread: K (warpgroup 0) or V (1) once, and per query
+// tile its SS operand (Q with its lse rows, or dO with its delta rows) into
+// a ring of S1 stages and its RS operand (dO^T or Q^T) into a ring of S2
+// stages. Only the warpgroup that reads a stage refills it, after a named
+// barrier of its 128 threads has seen its wgmmas done: the SS stage once
+// S^T (or dP^T) is done (its lse or delta rows are then in registers), the
+// RS stage once the partials are done. The refills are predicated, not
+// branched on the first thread (tma_load_if): a branch of one thread there
+// made ptxas serialise the wgmmas (C7520).
+// P^T passes to warpgroup 1 through two shared buffers as in the bf16
+// route. What bounds it: shared memory. A query tile takes eight planes
+// (Q, dO, Q^T, dO^T, hi and lo), 32 BQ D bytes, and K and V hi and lo take
+// 1 KB D, so the tiles are small: (BQ, S1, S2) = (64, 1, 1) at D = 64
+// (226 KB) and (16, 1, 1) at D = 128 (201 KB; the transposed tiles there
+// are 16 queries of 64-byte rows, swizzled 64 bytes; a second stage of
+// either ring does not fit), and each tile's eight planes come from L2 for
+// every 64 keys. At D = 64, (32, 2, 2) ran 1.25x and (32, 1, 1) 1.39x the
+// time of (64, 1, 1): the wider SS products (N = 64) outweigh the second
+// stage (tools/flash_f32_tiles.py; PERF.md).
+template <int D, int BQ, int S1, int S2> struct DkvTf32Layout {
+    static constexpr int kBK = 64;
+    static constexpr int kKvPlane = kBK * D * 4;  // bytes: K hi (lo, V ..)
+    static constexpr int kKvBox = kBK * flash_wgmma::kRowBytes;
+    static constexpr int kQPlane = BQ * D * 4;    // Q hi (lo, dO, Q^T ..)
+    static constexpr int kQBox = BQ * flash_wgmma::kRowBytes;
+    // transposed tiles: D rows of BQ queries, in boxes of 32 (rows of 128
+    // bytes) or, at BQ = 16, one box of 64-byte rows
+    static constexpr int kTRowBytes = BQ >= 32 ? flash_wgmma::kRowBytes
+                                               : BQ * 4;
+    static constexpr int kTBox = D * kTRowBytes;
+    static constexpr int kTBoxCols = kTRowBytes / 4;
+    static constexpr int kStage = 2 * kQPlane;    // hi and lo
+    static constexpr int kK = 0;                  // K hi, K lo, V hi, V lo
+    static constexpr int kR1 = 4 * kKvPlane;      // [warpgroup][S1]
+    static constexpr int kR2 = kR1 + 2 * S1 * kStage;  // [warpgroup][S2]
+    static constexpr int kStats = kR2 + 2 * S2 * kStage;  // [wg][S1] BQ
+    static constexpr int kP = kStats + 2 * S1 * BQ * 4;   // 2 x 64 x BQ
+    static constexpr int kPBuf = kBK * BQ * 4;
+    static constexpr int kBar = kP + 2 * kPBuf;
+    // barriers: K or V of each warpgroup; R1 full [wg][S1]; R2 full
+    // [wg][S2]; P full and P empty of each buffer
+    static constexpr int kBarriers = 2 + 2 * S1 + 2 * S2 + 4;
+    static constexpr int kBytes = kBar + 8 * kBarriers + 1024;
+    static_assert(kBytes <= 232448, "shared memory of one block");
+    static_assert(kQPlane % 1024 == 0, "1024-byte aligned tiles");
+};
+
+template <int S1, int S2> struct DkvTf32Barriers {
+    uint32_t base;
+    __device__ uint32_t kv(int wg) const { return base + 8 * wg; }
+    __device__ uint32_t r1(int wg, int s) const {
+        return base + 8 * (2 + wg * S1 + s);
+    }
+    __device__ uint32_t r2(int wg, int s) const {
+        return base + 8 * (2 + 2 * S1 + wg * S2 + s);
+    }
+    __device__ uint32_t p_full(int i) const {
+        return base + 8 * (2 + 2 * S1 + 2 * S2 + i);
+    }
+    __device__ uint32_t p_empty(int i) const {
+        return base + 8 * (4 + 2 * S1 + 2 * S2 + i);
+    }
+};
+
+// The tensor maps of the twelve planes, in the split pass's order: Q hi, Q
+// lo, Q^T hi, Q^T lo, K hi, K lo, V hi, V lo, dO hi, dO lo, dO^T hi, dO^T lo.
+struct alignas(64) DkvTf32Maps {
+    CUtensorMap m[12];
+};
+constexpr int kMapQ = 0, kMapQt = 2, kMapK = 4, kMapV = 6, kMapDo = 8,
+              kMapDot = 10;
+
+// Warpgroup wg's SS operand of query tile `tile` (Q and lse, or dO and
+// delta) into its R1 stage: issued where `issue` holds (its first thread).
+template <int D, int BQ, int S1, int S2>
+__device__ __forceinline__ void dkv_tf32_load_r1(const DkvTf32Maps& maps,
+                                                 const BwdParams& p, int bh,
+                                                 uint32_t base,
+                                                 DkvTf32Barriers<S1, S2> bar,
+                                                 int wg, int tile,
+                                                 bool issue) {
+    using L = DkvTf32Layout<D, BQ, S1, S2>;
+    namespace fw = flash_wgmma;
+    const int s = tile % S1;
+    const uint32_t dst = base + L::kR1 + (wg * S1 + s) * L::kStage;
+    const CUtensorMap* m = &maps.m[wg == 0 ? kMapQ : kMapDo];
+    const long long row = static_cast<long long>(bh) * p.t + tile * BQ;
+    fw::mbar_expect_tx_if(issue, bar.r1(wg, s), L::kStage + BQ * 4);
+#pragma unroll
+    for (int plane = 0; plane < 2; ++plane)
+#pragma unroll
+        for (int box = 0; box < D / fw::kTf32BoxCols; ++box)
+            fw::tma_load_if(issue, dst + plane * L::kQPlane + box * L::kQBox,
+                            m + plane, bar.r1(wg, s),
+                            box * fw::kTf32BoxCols, tile * BQ, bh % p.heads,
+                            bh / p.heads);
+    fw::bulk_load_if(issue, base + L::kStats + (wg * S1 + s) * BQ * 4,
+                     (wg == 0 ? p.lse : p.delta) + row, BQ * 4,
+                     bar.r1(wg, s));
+}
+
+// Warpgroup wg's RS operand of query tile `tile` (dO^T, or Q^T) into its R2
+// stage: issued where `issue` holds (its first thread).
+template <int D, int BQ, int S1, int S2>
+__device__ __forceinline__ void dkv_tf32_load_r2(const DkvTf32Maps& maps,
+                                                 const BwdParams& p, int bh,
+                                                 uint32_t base,
+                                                 DkvTf32Barriers<S1, S2> bar,
+                                                 int wg, int tile,
+                                                 bool issue) {
+    using L = DkvTf32Layout<D, BQ, S1, S2>;
+    namespace fw = flash_wgmma;
+    const int s = tile % S2;
+    const uint32_t dst = base + L::kR2 + (wg * S2 + s) * L::kStage;
+    const CUtensorMap* m = &maps.m[wg == 0 ? kMapDot : kMapQt];
+    fw::mbar_expect_tx_if(issue, bar.r2(wg, s), L::kStage);
+#pragma unroll
+    for (int plane = 0; plane < 2; ++plane)
+#pragma unroll
+        for (int box = 0; box < BQ / L::kTBoxCols; ++box)
+            fw::tma_load_if(issue, dst + plane * L::kQPlane + box * L::kTBox,
+                            m + plane, bar.r2(wg, s),
+                            tile * BQ + box * L::kTBoxCols, 0, bh % p.heads,
+                            bh / p.heads);
+}
+
+// One warpgroup's side: wg 0 (S^T, P^T, dV) or 1 (dP^T, dS^T, dK).
+template <typename T, int D, int BQ, int S1, int S2>
+__device__ __forceinline__ void dkv_consume_tf32(const BwdParams& p,
+                                                 const DkvTf32Maps& maps,
+                                                 unsigned char* smem,
+                                                 DkvTf32Barriers<S1, S2> bar,
+                                                 int bh, int k0, int wg,
+                                                 int n_tiles) {
+    using L = DkvTf32Layout<D, BQ, S1, S2>;
+    namespace fw = flash_wgmma;
+    constexpr int QT = BQ / 8;  // 8-column tiles of S^T (queries)
+    const int tid = threadIdx.x & 127;
+    const int lane = threadIdx.x & 31;
+    const int warp = tid >> 5;      // within the warpgroup
+    const int t2 = 2 * (lane & 3);  // this thread's first column of a tile
+    const bool leader = tid == 0;
+    const uint32_t base = smem_addr(smem);
+    // warpgroup 0 multiplies K by Q and P^T by dO; warpgroup 1 V by dO and
+    // dS^T by Q
+    const uint32_t a_w = base + L::kK + wg * 2 * L::kKvPlane;
+
+    float acc[D / 8][4];  // dV (warpgroup 0) or dK (warpgroup 1)
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
+
+    fw::mbar_wait(bar.kv(wg), 0);
+    for (int tile = 0; tile < n_tiles; ++tile) {
+        const int s1 = tile % S1;
+        const int s2 = tile % S2;
+        const uint32_t b_s = base + L::kR1 + (wg * S1 + s1) * L::kStage;
+        const uint32_t b_t = base + L::kR2 + (wg * S2 + s2) * L::kStage;
+        const float* stats = reinterpret_cast<const float*>(
+            smem + L::kStats) + (wg * S1 + s1) * BQ;
+
+        // ---- S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (warpgroup 1):
+        // rows keys, columns queries; lse (or delta) of this thread's
+        // columns into registers
+        float sc[QT][4];
+        float2 stat[QT];
+        fw::mbar_wait(bar.r1(wg, s1), (tile / S1) & 1);
+#pragma unroll
+        for (int j = 0; j < QT; ++j)
+            stat[j] = *reinterpret_cast<const float2*>(stats + 8 * j + t2);
+        fw::wgmma_fence();
+        fw::ss_3xtf32<BQ, D>(sc, fw::opaque(a_w), L::kKvBox, L::kKvPlane,
+                             b_s, L::kQBox, L::kQPlane);
+        fw::wgmma_commit();
+        fw::wgmma_wait<0>();
+        fw::fence_regs(sc);
+        // the SS stage is read: refill it
+        fw::named_barrier(1 + wg, 128);
+        if (tile + S1 < n_tiles)
+            dkv_tf32_load_r1<D, BQ, S1, S2>(maps, p, bh, base, bar, wg,
+                                            tile + S1, leader);
+
+        // ---- P^T, through shared memory, and dS^T
+        const int buf = tile & 1;
+        const uint32_t use = (tile >> 1) & 1;  // parity of this buffer's use
+        float4* p_buf = reinterpret_cast<float4*>(smem + L::kP
+                                                  + buf * L::kPBuf) + tid;
+        if (wg == 0) {
+#pragma unroll
+            for (int j = 0; j < QT; ++j) {
+#pragma unroll
+                for (int c = 0; c < 4; ++c) {
+                    const float l2 = ((c & 1) ? stat[j].y : stat[j].x)
+                        * kLog2e;
+                    sc[j][c] = fw::exp2_ftz(fmaf(sc[j][c], p.logit_scale,
+                                                 -l2));
+                }
+            }
+            if (tile >= 2) fw::mbar_wait(bar.p_empty(buf), use ^ 1);
+#pragma unroll
+            for (int j = 0; j < QT; ++j)
+                p_buf[128 * j] = make_float4(sc[j][0], sc[j][1], sc[j][2],
+                                             sc[j][3]);
+            fw::mbar_arrive(bar.p_full(buf));
+        } else {
+            fw::mbar_wait(bar.p_full(buf), use);
+#pragma unroll
+            for (int j = 0; j < QT; ++j) {
+                const float4 pv = p_buf[128 * j];
+                sc[j][0] = pv.x * (sc[j][0] - stat[j].x);
+                sc[j][1] = pv.y * (sc[j][1] - stat[j].y);
+                sc[j][2] = pv.z * (sc[j][2] - stat[j].x);
+                sc[j][3] = pv.w * (sc[j][3] - stat[j].y);
+            }
+            fw::mbar_arrive(bar.p_empty(buf));
+        }
+
+        // ---- dV += P^T dO or dK += dS^T Q over this tile's queries
+        // (hi and lo in registers of their own: split in place, into the
+        // registers that the warpgroups' branches above wrote, ptxas
+        // serialised the wgmmas at D = 64, C7520)
+        float hi[QT][4], lo[QT][4];
+        fw::split_tf32_tiles(sc, hi, lo);
+        fw::mbar_wait(bar.r2(wg, s2), (tile / S2) & 1);
+        fw::add_partials_tf32<BQ, D / 64, L::kTRowBytes>(
+            acc, hi, lo, b_t, b_t + L::kQPlane, L::kTBox);
+        fw::named_barrier(1 + wg, 128);
+        if (tile + S2 < n_tiles)
+            dkv_tf32_load_r2<D, BQ, S1, S2>(maps, p, bh, base, bar, wg,
+                                            tile + S2, leader);
+    }
+
+    // warpgroup 0 writes dV, warpgroup 1 dK (times s^2)
+    const int b = bh / p.heads;
+    const int h = bh % p.heads;
+    const long long row0 = k0 + 16 * warp;
+    T* out = wg == 0
+        ? static_cast<T*>(p.dv) + b * p.dv_sb + h * p.dv_sh + row0 * p.dv_st
+        : static_cast<T*>(p.dk) + b * p.dk_sb + h * p.dk_sh + row0 * p.dk_st;
+    const long long stride = wg == 0 ? p.dv_st : p.dk_st;
+    const float scale = wg == 0 ? 1.0f : p.grad_scale;
+    flash_mma::store_rows<T, D / 8>(out, stride, acc, scale, scale, lane);
+}
+
+template <typename T, int D, int BQ, int S1, int S2>
+__global__ void __launch_bounds__(flash_wgmma::kThreads, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ DkvTf32Maps maps,
+                           const BwdParams p) {
+    static_assert(sizeof(T) == 4, "the float32 wgmma route");
+    using L = DkvTf32Layout<D, BQ, S1, S2>;
+    namespace fw = flash_wgmma;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = fw::align_1024(smem_raw);
+    const uint32_t base = smem_addr(smem);
+    const DkvTf32Barriers<S1, S2> bar{base + L::kBar};
+    const int bh = blockIdx.y;
+    const int k0 = blockIdx.x * L::kBK;
+    const int n_tiles = p.t / BQ;
+    // the warpgroup, as a value ptxas sees is the same across a warp: it
+    // selects the warpgroup's branch, operands and tensor maps, and a
+    // per-thread value there made ptxas serialise the wgmmas (C7520)
+    const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
+
+    if (threadIdx.x == 0) {
+        for (int i = 0; i < 2; ++i) {
+            fw::mbar_init(bar.kv(i), 1);
+            for (int s = 0; s < S1; ++s) fw::mbar_init(bar.r1(i, s), 1);
+            for (int s = 0; s < S2; ++s) fw::mbar_init(bar.r2(i, s), 1);
+            fw::mbar_init(bar.p_full(i), 128);   // warpgroup 0's threads
+            fw::mbar_init(bar.p_empty(i), 128);  // warpgroup 1's threads
+        }
+        fw::fence_barrier_init();
+    }
+    __syncthreads();
+    if ((threadIdx.x & 127) == 0) {  // K or V, and the first tiles
+        const int b = bh / p.heads;
+        const int h = bh % p.heads;
+        const uint32_t dst = base + L::kK + wg * 2 * L::kKvPlane;
+        const CUtensorMap* m = &maps.m[wg == 0 ? kMapK : kMapV];
+        fw::mbar_expect_tx(bar.kv(wg), 2 * L::kKvPlane);
+        for (int plane = 0; plane < 2; ++plane)
+            for (int box = 0; box < D / fw::kTf32BoxCols; ++box)
+                fw::tma_load(dst + plane * L::kKvPlane + box * L::kKvBox,
+                             m + plane, bar.kv(wg), box * fw::kTf32BoxCols,
+                             k0, h, b);
+        for (int tile = 0; tile < S1 && tile < n_tiles; ++tile)
+            dkv_tf32_load_r1<D, BQ, S1, S2>(maps, p, bh, base, bar, wg,
+                                            tile, true);
+        for (int tile = 0; tile < S2 && tile < n_tiles; ++tile)
+            dkv_tf32_load_r2<D, BQ, S1, S2>(maps, p, bh, base, bar, wg,
+                                            tile, true);
+    }
+    dkv_consume_tf32<T, D, BQ, S1, S2>(p, maps, smem, bar, bh, k0, wg,
+                                       n_tiles);
 }
 
 // -------------------------------------------------------- dQ: wgmma route
@@ -795,7 +1112,8 @@ __device__ __forceinline__ void dq_consume(const BwdParams& p,
 
         // ---- dQ += dS K over this tile's keys, in partials of kPnKeys (K
         // read MN-major from the tile that fed S)
-        fw::add_partials<BK, L::kBoxes>(acc, a_hi, a_lo, k_s, L::kKvBox);
+        fw::add_partials_bf16<BK, L::kBoxes>(acc, a_hi, a_lo, k_s,
+                                             L::kKvBox);
         __syncwarp();
         if (lane == 0) fw::mbar_arrive(bar.empty(s));
     }
@@ -893,13 +1211,47 @@ cudaError_t launch_dkv_wgmma(const BwdParams& p, int batch,
         err = flash_wgmma::encode_operand(&tm_do, p.dout, batch, p.heads, p.t,
                                           D, p.do_sb, p.do_sh, p.do_st, BQ);
     if (err != cudaSuccess) return err;
-    auto kernel = flash_bwd_dkv_wgmma_kernel<__nv_bfloat16, D, BQ, STAGES>;
+    void (*kernel)(const CUtensorMap, const CUtensorMap, const CUtensorMap,
+                   const CUtensorMap, const BwdParams) =
+        flash_bwd_dkv_wgmma_kernel<__nv_bfloat16, D, BQ, STAGES>;
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
     if (err != cudaSuccess) return err;
     const dim3 grid(p.t / L::kBK, batch * p.heads);
     kernel<<<grid, flash_wgmma::kThreads, L::kBytes, stream>>>(
         tm_q, tm_k, tm_v, tm_do, p);
+    return cudaGetLastError();
+}
+
+// planes: the split pass's twelve (B, H, T, D) float32 planes, in the order
+// of DkvTf32Maps.
+template <int D, int BQ, int S1, int S2>
+cudaError_t launch_dkv_wgmma_tf32(const BwdParams& p, const float* planes,
+                                  int batch, cudaStream_t stream) {
+    using L = DkvTf32Layout<D, BQ, S1, S2>;
+    namespace fw = flash_wgmma;
+    if (planes == nullptr) return cudaErrorInvalidValue;
+    const long long n = static_cast<long long>(batch) * p.heads * p.t * D;
+    DkvTf32Maps maps;
+    cudaError_t err = cudaSuccess;
+    for (int i = 0; i < 12 && err == cudaSuccess; ++i) {
+        const bool transposed = i == kMapQt || i == kMapQt + 1
+            || i == kMapDot || i == kMapDot + 1;  // (B, H, D, T)
+        const bool kv = i >= kMapK && i < kMapDo;
+        err = transposed
+            ? fw::encode_plane(&maps.m[i], planes + i * n, batch, p.heads, D,
+                               p.t, L::kTBoxCols, D)
+            : fw::encode_plane(&maps.m[i], planes + i * n, batch, p.heads,
+                               p.t, D, fw::kTf32BoxCols, kv ? L::kBK : BQ);
+    }
+    if (err != cudaSuccess) return err;
+    void (*kernel)(const DkvTf32Maps, const BwdParams) =
+        flash_bwd_dkv_wgmma_kernel<float, D, BQ, S1, S2>;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(p.t / L::kBK, batch * p.heads);
+    kernel<<<grid, fw::kThreads, L::kBytes, stream>>>(maps, p);
     return cudaGetLastError();
 }
 
@@ -940,14 +1292,16 @@ cudaError_t launch_dq_wgmma(const BwdParams& p, int batch,
 // BK keys, STAGES): (128, 3) at D = 64, (64, 3) at D = 128. dkv on mma.sync
 // (output columns DO, BK keys x BQ queries; a thread holds dK and dV, D/2
 // registers each, S^T and dP^T, BQ/2 each): 128 keys (8 warps) and 32-query
-// tiles up to D = 64, 16-query tiles for float32 at D = 128; at D = 256 two
-// column halves of 128, 64 keys and 16-query tiles (the float32 K, V and the
-// Q/dO ring take 195 KB). dkv on wgmma (bfloat16 at D = 64 and 128; 64 keys,
-// BQ queries, STAGES): (128, 3) at D = 64, (64, 4) at D = 128; larger query
-// tiles spill at D = 128, and 64-query tiles ran slower at D = 64.
+// tiles at D = 32; at D = 256 two column halves of 128, 64 keys and
+// 16-query tiles (the float32 K, V and the Q/dO ring take 195 KB). dkv on
+// wgmma, bfloat16 (64 keys, BQ queries, STAGES): (128, 3) at D = 64,
+// (64, 4) at D = 128; larger query tiles spill at D = 128, and 64-query
+// tiles ran slower at D = 64. dkv on wgmma, float32 (64 keys, BQ queries,
+// S1, S2): (64, 1, 1) at D = 64, (16, 1, 1) at D = 128, what shared memory
+// holds (the kernel's note).
 template <typename T>
-cudaError_t launch_for_d(const BwdParams& p, int batch, int d, bool dkv,
-                         cudaStream_t stream) {
+cudaError_t launch_for_d(const BwdParams& p, const float* planes, int batch,
+                         int d, bool dkv, cudaStream_t stream) {
     constexpr bool kBf16 = sizeof(T) == 2;
     if (dkv) {
         switch (d) {
@@ -956,12 +1310,14 @@ cudaError_t launch_for_d(const BwdParams& p, int batch, int d, bool dkv,
                 if constexpr (kBf16)
                     return launch_dkv_wgmma<64, 128, 3>(p, batch, stream);
                 else
-                    return launch_dkv<T, 64, 64, 128, 32>(p, batch, stream);
+                    return launch_dkv_wgmma_tf32<64, 64, 1, 1>(p, planes,
+                                                               batch, stream);
             case 128:
                 if constexpr (kBf16)
                     return launch_dkv_wgmma<128, 64, 4>(p, batch, stream);
                 else
-                    return launch_dkv<T, 128, 128, 128, 16>(p, batch, stream);
+                    return launch_dkv_wgmma_tf32<128, 16, 1, 1>(p, planes,
+                                                                batch, stream);
             case 256:
                 return launch_dkv<T, 256, 128, 64, 16>(p, batch, stream);
             default: return cudaErrorInvalidValue;
@@ -987,7 +1343,7 @@ cudaError_t launch_for_d(const BwdParams& p, int batch, int d, bool dkv,
 int launch(bool dkv, const void* q, const void* k, const void* v,
            const void* dout, const float* lse, const float* delta, void* dq,
            void* dk, void* dv, int batch, int heads, int t, int d, int dtype,
-           const long long* s, void* stream) {
+           const long long* s, const float* planes, void* stream) {
     if (batch <= 0 || heads <= 0 || t <= 0 || t % 128 != 0 ||
         static_cast<long long>(batch) * heads > 65535)
         return static_cast<int>(cudaErrorInvalidValue);
@@ -1007,9 +1363,9 @@ int launch(bool dkv, const void* q, const void* k, const void* v,
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     cudaError_t err;
     if (dtype == 0)
-        err = launch_for_d<float>(p, batch, d, dkv, st);
+        err = launch_for_d<float>(p, planes, batch, d, dkv, st);
     else if (dtype == 1)
-        err = launch_for_d<__nv_bfloat16>(p, batch, d, dkv, st);
+        err = launch_for_d<__nv_bfloat16>(p, planes, batch, d, dkv, st);
     else
         err = cudaErrorInvalidValue;
     return static_cast<int>(err);
@@ -1020,23 +1376,27 @@ int launch(bool dkv, const void* q, const void* k, const void* v,
 // dtype: 0 float32, 1 bfloat16; q, k, v, dout (and dq, dk, dv) of that type,
 // lse and delta float32 (B*H, T) contiguous. t must be a multiple of 128.
 // `strides` holds 21 element strides, (batch, head, row) of q, k, v, dout,
-// dq, dk, dv in that order; the last dimension of each is contiguous. Each
-// entry launches one kernel on `stream`, does not synchronise, allocates
-// nothing, and returns the CUDA error code.
+// dq, dk, dv in that order; the last dimension of each is contiguous. dkv's
+// `planes`: for float32 at d = 64 and 128 the split pass's planes of q
+// (K-major and transposed), k, v (K-major) and dout (both),
+// (12, batch, heads, t, d) (pai_flash_split), which that route reads
+// instead of q, k, v and dout; ignored otherwise. Each entry launches one
+// kernel on `stream`, does not synchronise, allocates nothing, and returns
+// the CUDA error code.
 extern "C" int pai_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dq,
     int batch, int heads, int t, int d, int dtype, const long long* strides,
     void* stream) {
     return launch(false, q, k, v, dout, lse, delta, dq, nullptr, nullptr,
-                  batch, heads, t, d, dtype, strides, stream);
+                  batch, heads, t, d, dtype, strides, nullptr, stream);
 }
 
 extern "C" int pai_flash_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dk, void* dv,
     int batch, int heads, int t, int d, int dtype, const long long* strides,
-    void* stream) {
+    const float* planes, void* stream) {
     return launch(true, q, k, v, dout, lse, delta, nullptr, dk, dv,
-                  batch, heads, t, d, dtype, strides, stream);
+                  batch, heads, t, d, dtype, strides, planes, stream);
 }

@@ -1,33 +1,43 @@
-// Hopper building blocks of the bfloat16 flash-attention kernels at D = 64
-// and D = 128 (flash_attention.cu::flash_fwd_wgmma_kernel,
+// Hopper building blocks of the flash-attention kernels at D = 64 and
+// D = 128 (flash_attention.cu::flash_fwd_wgmma_kernel,
 // flash_attention_bwd.cu::flash_bwd_dq_wgmma_kernel and
-// flash_bwd_dkv_wgmma_kernel): warpgroup matrix multiplies (wgmma), tile
-// loads by the Tensor Memory Accelerator (TMA) and the mbarriers that join
-// them. sm_90a only (wgmma).
+// flash_bwd_dkv_wgmma_kernel; the forward and dkv also in float32):
+// warpgroup matrix multiplies (wgmma), tile loads by the Tensor Memory
+// Accelerator (TMA) and the mbarriers that join them. sm_90a only (wgmma).
 //
-// * Tiles are loaded by TMA, in boxes of 64 columns (128 bytes of bf16) and
-//   up to 256 rows, from a 4-D tensor map (columns, rows, heads, batch) that
-//   describes the operand's strided (B, H, T, D) view, so the q, k, v slices
-//   of one packed (N, T, heads, 3, D) tensor are read in place. The map
-//   swizzles 128 bytes: the 16-byte chunk c of row r lands at chunk
-//   c ^ (r % 8) of its row, which keeps wgmma's reads free of bank
-//   conflicts. A box is
-//   rows x 128 bytes, 1024-byte aligned; a D = 128 tile is two boxes. The map
-//   is encoded on the host at every launch (cuTensorMapEncodeTiled, reached
-//   through the runtime's driver entry point) and passed by value as a
-//   __grid_constant__ kernel parameter.
+// * Tiles are loaded by TMA, in boxes of 128-byte rows (64 bf16 or 32
+//   float32 columns) and up to 256 rows, from a 4-D tensor map (columns,
+//   rows, heads, batch). A bf16 map describes the operand's strided
+//   (B, H, T, D) view, so the q, k, v slices of one packed
+//   (N, T, heads, 3, D) tensor are read in place; a float32 map describes
+//   a contiguous plane of the split pass (flash_split.cu). The map swizzles
+//   128 bytes: the 16-byte chunk c of row r lands at chunk c ^ (r % 8) of
+//   its row, which keeps wgmma's reads free of bank conflicts (64-byte
+//   rows, a float32 tile of 16 columns, swizzle 64 bytes alike). A box is
+//   rows x 128 bytes, 1024-byte aligned; a D = 128 bf16 tile is two boxes,
+//   a float32 one four. The map is encoded on the host at every launch
+//   (cuTensorMapEncodeTiled, reached through the runtime's driver entry
+//   point) and passed by value as a __grid_constant__ kernel parameter.
 // * wgmma reads such a tile through a shared-memory descriptor with the same
-//   128-byte swizzle: K-major (the reduced dimension along the row: Q, K
-//   for S = Q K^T) with 8-row groups 1024 bytes apart, a step of 16 columns
-//   adding 32 bytes to the start address; MN-major (V in P V, K in dS K,
-//   read transposed), 16 rows a step (2048 bytes), the second 64-column box
-//   `lbo` bytes further.
-// * The float32 accumulators of m64nNk16 lie in each warp of the warpgroup
-//   as the C fragments of mma.sync m16n8 lie (flash_mma.cuh): warp w holds
-//   rows 16w..16w+15, register 4j + c column tile j. Two adjacent column
-//   tiles of a float32 result are the A fragment of a 16-deep product, so P
-//   (and dS) enter the next wgmma from registers as two bf16 terms, hi and
-//   lo (flash_mma.cuh, split_bf16x2), without a trip through shared memory.
+//   swizzle: K-major (the reduced dimension along the row: Q, K for
+//   S = Q K^T) with 8-row groups 8 rows apart, a step of 32 bytes (16 bf16
+//   or 8 TF32 columns) adding 32 bytes to the start address; bf16 also
+//   MN-major (V in P V, K in dS K, read transposed), 16 rows a step (2048
+//   bytes), the second 64-column box `lbo` bytes further. TF32 operands are
+//   K-major only, so the float32 route's B operands of the products that
+//   sum over keys (or queries) are transposed planes written by the split
+//   pass.
+// * The float32 accumulators of m64nNk16 (and m64nNk8) lie in each warp of
+//   the warpgroup as the C fragments of mma.sync m16n8 lie (flash_mma.cuh):
+//   warp w holds rows 16w..16w+15, register 4j + c column tile j. Two
+//   adjacent column tiles of a float32 result are the A fragment of a
+//   16-deep bf16 product, so P (and dS) enter the next wgmma from registers
+//   as two bf16 terms, hi and lo (flash_mma.cuh, split_bf16x2), without a
+//   trip through shared memory. One column tile is the A fragment of an
+//   8-deep TF32 product, its k slots t and t + 4 holding columns 2t and
+//   2t + 1 (tf32_frag): the split pass writes each group of 8 rows of a
+//   transposed plane in that order, and P (or P^T, dS^T) enters as TF32 hi
+//   and lo (flash_mma.cuh, split_tf32).
 // * A block is two warpgroups (256 threads: a thread may hold up to 255
 //   registers, which the consumers' accumulators need); one of its threads
 //   also issues the TMA loads. A warp-specialised block of a producer
@@ -41,7 +51,7 @@
 //   warp has waited for the wgmma that read it (one arrival per warp). A
 //   wait that has not ended after some 2^35 cycles (seconds) traps: a
 //   broken pipeline ends the launch with an error instead of hanging. The
-//   forward and dq share the K/V ring (KvRing, load_kv_tile); all three
+//   bf16 forward and dq share the K/V ring (KvRing, load_kv_tile); all the
 //   kernels sum their RS products over the long axis in add_partials.
 
 #pragma once
@@ -58,6 +68,7 @@ namespace flash_wgmma {
 using flash_mma::smem_addr;
 
 constexpr int kBoxCols = 64;        // bf16 columns of one TMA box (128 B)
+constexpr int kTf32BoxCols = 32;    // float32 columns of one TMA box (128 B)
 constexpr int kRowBytes = 128;      // bytes of one box row
 constexpr int kThreads = 256;       // two warpgroups
 constexpr long long kHangCycles = 1ll << 35;
@@ -114,6 +125,43 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
         : "memory");
 }
 
+// The same, issued only where `pred` holds, without a branch: every thread
+// of a warpgroup runs it and no code path diverges around the wgmmas
+// (a load issued by one thread in a branch of its own made ptxas serialise
+// the float32 dkv's wgmmas, C7520).
+__device__ __forceinline__ void tma_load_if(bool pred, uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int col, int row,
+                                            int head, int batch) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %7, 0;\n"
+        "@p cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n}\n"
+        :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+           "r"(col), "r"(row), "r"(head), "r"(batch), "r"(int(pred))
+        : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx_if(bool pred, uint32_t bar,
+                                                  uint32_t bytes) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n"
+        "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n}\n"
+        :: "r"(bar), "r"(bytes), "r"(int(pred)) : "memory");
+}
+
+__device__ __forceinline__ void bulk_load_if(bool pred, uint32_t dst,
+                                             const void* src, uint32_t bytes,
+                                             uint32_t bar) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %4, 0;\n"
+        "@p cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+        "bytes [%0], [%1], %2, [%3];\n}\n"
+        :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+           "r"(bar), "r"(int(pred))
+        : "memory");
+}
+
 // `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned).
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
                                           uint32_t bytes, uint32_t bar) {
@@ -126,6 +174,12 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
 }
 
 // ---------------------------------------------------------------- wgmma
+// bar.sync on named barrier `id` (1-15; 0 is __syncthreads') of `threads`
+// threads.
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+    asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -166,15 +220,16 @@ __device__ __forceinline__ float exp2_ftz(float x) {
     return y;
 }
 
-// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
-// byte offset (`lbo`), stride byte offset (`sbo`, 8-row groups), each in
-// 16-byte units.
+// Shared-memory matrix descriptor: start address, leading byte offset
+// (`lbo`), stride byte offset (`sbo`, 8-row groups), each in 16-byte units;
+// rows of `row_bytes` swizzled alike (128: layout type 1, 64: type 2).
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
+                                              uint32_t sbo,
+                                              int row_bytes = kRowBytes) {
     return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
         | (static_cast<uint64_t>(lbo >> 4) << 16)
         | (static_cast<uint64_t>(sbo >> 4) << 32)
-        | (1ull << 62);
+        | (static_cast<uint64_t>(row_bytes == kRowBytes ? 1 : 2) << 62);
 }
 
 // K-major operand at `tile` (64-column boxes `box_bytes` apart, 8-row groups
@@ -189,6 +244,48 @@ __device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int box_bytes,
 __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int box_bytes,
                                                  int kk) {
     return make_desc(tile + kk * 16 * kRowBytes, box_bytes, 1024);
+}
+
+// K-major TF32 operand at `tile` with rows of ROW_BYTES (128: 32 columns a
+// box, boxes `box_bytes` apart; 64: one box of 16 columns): its 8-column
+// step kk, from row `row` (a multiple of 8).
+template <int ROW_BYTES>
+__device__ __forceinline__ uint64_t tf32_desc(uint32_t tile, int box_bytes,
+                                              int row, int kk) {
+    constexpr int kSteps = ROW_BYTES / 32;  // 8-column steps per row
+    return make_desc(tile + (kk / kSteps) * box_bytes + row * ROW_BYTES
+                         + (kk % kSteps) * 32,
+                     16, 8 * ROW_BYTES, ROW_BYTES);
+}
+
+// The A fragment of TF32 step kk of a float32 result held as accumulator
+// tiles x: k slot t (registers 0, 1: rows g, g + 8) holds column 2t, slot
+// t + 4 (registers 2, 3) column 2t + 1.
+template <int R>
+__device__ __forceinline__ void tf32_frag(const float (&x)[R][4], int kk,
+                                          uint32_t (&a)[4]) {
+    a[0] = __float_as_uint(x[kk][0]);
+    a[1] = __float_as_uint(x[kk][2]);
+    a[2] = __float_as_uint(x[kk][1]);
+    a[3] = __float_as_uint(x[kk][3]);
+}
+
+// x = hi + lo for each accumulator value of `x`: hi its TF32 value
+// (rounded to nearest), lo the rest (flash_mma.cuh, split_tf32). `hi` may
+// be `x` itself.
+template <int R>
+__device__ __forceinline__ void split_tf32_tiles(const float (&x)[R][4],
+                                                 float (&hi)[R][4],
+                                                 float (&lo)[R][4]) {
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+            uint32_t h, l;
+            flash_mma::split_tf32(x[j][c], h, l);
+            hi[j][c] = __uint_as_float(h);
+            lo[j][c] = __uint_as_float(l);
+        }
 }
 
 // The A fragments (hi and lo bf16 terms) of 16-deep step kk of a float32
@@ -367,44 +464,181 @@ template <> struct Wgmma<128> {
     }
 };
 
-// acc += A B, summed over ROWS rows of B (keys, or queries in dkv): A as hi
-// and lo bf16 fragments of 16 rows a step (split_step), B a tile of BOXES
-// 64-column boxes `box_bytes` apart read MN-major, acc its BOXES x 64
-// float32 columns. The sum runs in partials of kPnKeys rows per box, each
-// a fresh accumulator of four RS wgmmas (the two lo terms first: the tensor
-// cores truncate as they accumulate, which costs a small term less while
-// the partial is small too), added to acc with a float32 add once the next
-// partial has been issued (two in flight). Every wgmma of the warpgroup has
-// completed on return.
-template <int ROWS, int BOXES>
-__device__ __forceinline__ void add_partials(
-    float (&acc)[8 * BOXES][4], const uint32_t (&hi)[ROWS / 16][4],
-    const uint32_t (&lo)[ROWS / 16][4], uint32_t b_tile, int box_bytes) {
-    using MMA = Wgmma<kBoxCols>;
-    constexpr int kSteps = flash_mma::kPnKeys / 16;
-    constexpr int kJobs = ROWS / flash_mma::kPnKeys * BOXES;
+// m64nNk8 TF32 products with float32 accumulators, one warpgroup: the
+// tensor cores read the top 19 bits of each float32 operand. TF32 takes
+// both operands K-major only (no transpose immediates).
+template <int N> struct Tf32;
+
+template <> struct Tf32<16> {
+    // d = A B^T, A and B K-major in shared memory
+    __device__ static void ss_first(float (&d)[2][4], uint64_t desc_a,
+                                   uint64_t desc_b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+            "%8, %9, p, 1, 1;\n}\n"
+            : "=f"(d[0][0]), "=f"(d[0][1]), "=f"(d[0][2]), "=f"(d[0][3]),
+              "=f"(d[1][0]), "=f"(d[1][1]), "=f"(d[1][2]), "=f"(d[1][3])
+            : "l"(desc_a), "l"(desc_b), "r"(0));
+    }
+    // d += A B^T, A and B K-major in shared memory
+    __device__ static void ss(float (&d)[2][4], uint64_t desc_a,
+                             uint64_t desc_b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+            "%8, %9, p, 1, 1;\n}\n"
+            : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+              "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+            : "l"(desc_a), "l"(desc_b), "r"(1));
+    }
+};
+
+template <> struct Tf32<32> {
+    // d = A B^T, A and B K-major in shared memory
+    __device__ static void ss_first(float (&d)[4][4], uint64_t desc_a,
+                                   uint64_t desc_b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, "
+            "%8, %9, %10, %11, %12, %13, %14, %15}, "
+            "%16, %17, p, 1, 1;\n}\n"
+            : "=f"(d[0][0]), "=f"(d[0][1]), "=f"(d[0][2]), "=f"(d[0][3]),
+              "=f"(d[1][0]), "=f"(d[1][1]), "=f"(d[1][2]), "=f"(d[1][3]),
+              "=f"(d[2][0]), "=f"(d[2][1]), "=f"(d[2][2]), "=f"(d[2][3]),
+              "=f"(d[3][0]), "=f"(d[3][1]), "=f"(d[3][2]), "=f"(d[3][3])
+            : "l"(desc_a), "l"(desc_b), "r"(0));
+    }
+    // d += A B^T, A and B K-major in shared memory
+    __device__ static void ss(float (&d)[4][4], uint64_t desc_a,
+                             uint64_t desc_b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, "
+            "%8, %9, %10, %11, %12, %13, %14, %15}, "
+            "%16, %17, p, 1, 1;\n}\n"
+            : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+              "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+              "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+              "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+            : "l"(desc_a), "l"(desc_b), "r"(1));
+    }
+};
+
+template <> struct Tf32<64> {
+    // d = A B^T, A and B K-major in shared memory
+    __device__ static void ss_first(float (&d)[8][4], uint64_t desc_a,
+                                   uint64_t desc_b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, "
+            "%8, %9, %10, %11, %12, %13, %14, %15, "
+            "%16, %17, %18, %19, %20, %21, %22, %23, "
+            "%24, %25, %26, %27, %28, %29, %30, %31}, "
+            "%32, %33, p, 1, 1;\n}\n"
+            : "=f"(d[0][0]), "=f"(d[0][1]), "=f"(d[0][2]), "=f"(d[0][3]),
+              "=f"(d[1][0]), "=f"(d[1][1]), "=f"(d[1][2]), "=f"(d[1][3]),
+              "=f"(d[2][0]), "=f"(d[2][1]), "=f"(d[2][2]), "=f"(d[2][3]),
+              "=f"(d[3][0]), "=f"(d[3][1]), "=f"(d[3][2]), "=f"(d[3][3]),
+              "=f"(d[4][0]), "=f"(d[4][1]), "=f"(d[4][2]), "=f"(d[4][3]),
+              "=f"(d[5][0]), "=f"(d[5][1]), "=f"(d[5][2]), "=f"(d[5][3]),
+              "=f"(d[6][0]), "=f"(d[6][1]), "=f"(d[6][2]), "=f"(d[6][3]),
+              "=f"(d[7][0]), "=f"(d[7][1]), "=f"(d[7][2]), "=f"(d[7][3])
+            : "l"(desc_a), "l"(desc_b), "r"(0));
+    }
+    // d += A B^T, A and B K-major in shared memory
+    __device__ static void ss(float (&d)[8][4], uint64_t desc_a,
+                             uint64_t desc_b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, "
+            "%8, %9, %10, %11, %12, %13, %14, %15, "
+            "%16, %17, %18, %19, %20, %21, %22, %23, "
+            "%24, %25, %26, %27, %28, %29, %30, %31}, "
+            "%32, %33, p, 1, 1;\n}\n"
+            : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+              "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+              "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+              "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+              "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+              "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+              "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+              "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+            : "l"(desc_a), "l"(desc_b), "r"(1));
+    }
+    // d = A B^T, A a register fragment, B K-major in shared memory
+    __device__ static void rs_first(float (&d)[8][4], const uint32_t (&a)[4],
+                                   uint64_t desc_b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, "
+            "%8, %9, %10, %11, %12, %13, %14, %15, "
+            "%16, %17, %18, %19, %20, %21, %22, %23, "
+            "%24, %25, %26, %27, %28, %29, %30, %31}, "
+            "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+            : "=f"(d[0][0]), "=f"(d[0][1]), "=f"(d[0][2]), "=f"(d[0][3]),
+              "=f"(d[1][0]), "=f"(d[1][1]), "=f"(d[1][2]), "=f"(d[1][3]),
+              "=f"(d[2][0]), "=f"(d[2][1]), "=f"(d[2][2]), "=f"(d[2][3]),
+              "=f"(d[3][0]), "=f"(d[3][1]), "=f"(d[3][2]), "=f"(d[3][3]),
+              "=f"(d[4][0]), "=f"(d[4][1]), "=f"(d[4][2]), "=f"(d[4][3]),
+              "=f"(d[5][0]), "=f"(d[5][1]), "=f"(d[5][2]), "=f"(d[5][3]),
+              "=f"(d[6][0]), "=f"(d[6][1]), "=f"(d[6][2]), "=f"(d[6][3]),
+              "=f"(d[7][0]), "=f"(d[7][1]), "=f"(d[7][2]), "=f"(d[7][3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+              "r"(0));
+    }
+    // d += A B^T, A a register fragment, B K-major in shared memory
+    __device__ static void rs(float (&d)[8][4], const uint32_t (&a)[4],
+                             uint64_t desc_b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, "
+            "%8, %9, %10, %11, %12, %13, %14, %15, "
+            "%16, %17, %18, %19, %20, %21, %22, %23, "
+            "%24, %25, %26, %27, %28, %29, %30, %31}, "
+            "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+            : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+              "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+              "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+              "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+              "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+              "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+              "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+              "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+              "r"(1));
+    }
+};
+
+
+// acc += the sum of JOBS partial products, job j into the 64 columns of
+// box j % BOXES: issue(part, j) issues job j's wgmmas into a fresh float32
+// accumulator `part` (its first with scale-d 0), which is added to acc with
+// an ordinary float32 add once the next job has been issued (two in
+// flight). The tensor cores truncate as they accumulate, so each partial
+// sums at most kPnKeys rows (flash_mma.cuh). Every wgmma of the warpgroup
+// has completed on return.
+template <int JOBS, int BOXES, typename Issue>
+__device__ __forceinline__ void add_partials(float (&acc)[8 * BOXES][4],
+                                             Issue&& issue) {
     float part[2][8][4];
 #pragma unroll
-    for (int j = 0; j <= kJobs; ++j) {
-        if (j < kJobs) {
-            const int x = j % BOXES;
-            const int k0 = kSteps * (j / BOXES);
-            const uint32_t b_x = b_tile + x * box_bytes;
+    for (int j = 0; j <= JOBS; ++j) {
+        if (j < JOBS) {
             wgmma_fence();
-            MMA::rs_t_first(part[j & 1], lo[k0],
-                            mnmajor_desc(b_x, box_bytes, k0));
-#pragma unroll
-            for (int i = 1; i < kSteps; ++i)
-                MMA::rs_t(part[j & 1], lo[k0 + i],
-                          mnmajor_desc(b_x, box_bytes, k0 + i));
-#pragma unroll
-            for (int i = 0; i < kSteps; ++i)
-                MMA::rs_t(part[j & 1], hi[k0 + i],
-                          mnmajor_desc(b_x, box_bytes, k0 + i));
+            issue(part[j & 1], j);
             wgmma_commit();
         }
         if (j > 0) {
-            if (j < kJobs)
+            if (j < JOBS)
                 wgmma_wait<1>();
             else
                 wgmma_wait<0>();
@@ -417,6 +651,107 @@ __device__ __forceinline__ void add_partials(
                     acc[8 * x + i][c] += part[(j - 1) & 1][i][c];
         }
     }
+}
+
+// acc += A B, summed over ROWS rows of B (keys, or queries in dkv), bf16
+// route: A as hi and lo bf16 fragments of 16 rows a step (split_step), B a
+// tile of BOXES 64-column boxes `box_bytes` apart read MN-major, acc its
+// BOXES x 64 float32 columns. Partials of kPnKeys rows per box, each four
+// RS wgmmas (the two lo terms first: the tensor cores truncate as they
+// accumulate, which costs a small term less while the partial is small
+// too).
+template <int ROWS, int BOXES>
+__device__ __forceinline__ void add_partials_bf16(
+    float (&acc)[8 * BOXES][4], const uint32_t (&hi)[ROWS / 16][4],
+    const uint32_t (&lo)[ROWS / 16][4], uint32_t b_tile, int box_bytes) {
+    using MMA = Wgmma<kBoxCols>;
+    constexpr int kSteps = flash_mma::kPnKeys / 16;
+    add_partials<ROWS / flash_mma::kPnKeys * BOXES, BOXES>(
+        acc, [&](float (&part)[8][4], int j) {
+            const int x = j % BOXES;
+            const int k0 = kSteps * (j / BOXES);
+            const uint32_t b_x = b_tile + x * box_bytes;
+            MMA::rs_t_first(part, lo[k0], mnmajor_desc(b_x, box_bytes, k0));
+#pragma unroll
+            for (int i = 1; i < kSteps; ++i)
+                MMA::rs_t(part, lo[k0 + i],
+                          mnmajor_desc(b_x, box_bytes, k0 + i));
+#pragma unroll
+            for (int i = 0; i < kSteps; ++i)
+                MMA::rs_t(part, hi[k0 + i],
+                          mnmajor_desc(b_x, box_bytes, k0 + i));
+        });
+}
+
+// acc += A B, summed over ROWS rows of B, float32 route (3xTF32): A as TF32
+// hi and lo accumulator tiles of 8 rows a step (split_tf32_tiles), B a pair
+// of transposed planes' tiles, hi at b_hi and lo at b_lo: acc's BOXES x 64
+// columns as rows of ROW_BYTES (the ROWS summed over along the row, each
+// group of 8 in tf32_frag's order), in boxes of 32 rows `box_bytes` apart.
+// Partials of kPnKeys rows (or ROWS, if fewer) per 64-column box, each
+// three terms a step, lo x hi, hi x lo, hi x hi (lo x lo dropped), the
+// small ones first.
+template <int ROWS, int BOXES, int ROW_BYTES>
+__device__ __forceinline__ void add_partials_tf32(
+    float (&acc)[8 * BOXES][4], const float (&hi)[ROWS / 8][4],
+    const float (&lo)[ROWS / 8][4], uint32_t b_hi, uint32_t b_lo,
+    int box_bytes) {
+    using MMA = Tf32<64>;
+    constexpr int kRows = ROWS < flash_mma::kPnKeys ? ROWS
+                                                    : flash_mma::kPnKeys;
+    constexpr int kSteps = kRows / 8;
+    add_partials<ROWS / kRows * BOXES, BOXES>(
+        acc, [&](float (&part)[8][4], int j) {
+            const int row = 64 * (j % BOXES);
+            const int k0 = kSteps * (j / BOXES);
+            uint32_t a[4];
+            tf32_frag(lo, k0, a);
+            MMA::rs_first(part, a,
+                          tf32_desc<ROW_BYTES>(b_hi, box_bytes, row, k0));
+#pragma unroll
+            for (int i = 1; i < kSteps; ++i) {
+                tf32_frag(lo, k0 + i, a);
+                MMA::rs(part, a,
+                        tf32_desc<ROW_BYTES>(b_hi, box_bytes, row, k0 + i));
+            }
+#pragma unroll
+            for (int i = 0; i < kSteps; ++i) {
+                tf32_frag(hi, k0 + i, a);
+                MMA::rs(part, a,
+                        tf32_desc<ROW_BYTES>(b_lo, box_bytes, row, k0 + i));
+            }
+#pragma unroll
+            for (int i = 0; i < kSteps; ++i) {
+                tf32_frag(hi, k0 + i, a);
+                MMA::rs(part, a,
+                        tf32_desc<ROW_BYTES>(b_hi, box_bytes, row, k0 + i));
+            }
+        });
+}
+
+// S = A B^T over D columns, float32 route (3xTF32), A and B K-major tile
+// pairs (hi, lo) `lo_bytes` apart: A 64 rows at `a` in boxes `a_box` apart,
+// B at `b` in boxes `b_box` apart. Issues the D/8 x 3 SS wgmmas (lo x hi,
+// hi x lo, hi x hi) as one group; the caller commits and waits.
+template <int N, int D>
+__device__ __forceinline__ void ss_3xtf32(float (&s)[N / 8][4], uint32_t a,
+                                          int a_box, int a_lo, uint32_t b,
+                                          int b_box, int b_lo) {
+    using MMA = Tf32<N>;
+    MMA::ss_first(s, tf32_desc<kRowBytes>(a + a_lo, a_box, 0, 0),
+                  tf32_desc<kRowBytes>(b, b_box, 0, 0));
+#pragma unroll
+    for (int kk = 1; kk < D / 8; ++kk)
+        MMA::ss(s, tf32_desc<kRowBytes>(a + a_lo, a_box, 0, kk),
+                tf32_desc<kRowBytes>(b, b_box, 0, kk));
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)
+        MMA::ss(s, tf32_desc<kRowBytes>(a, a_box, 0, kk),
+                tf32_desc<kRowBytes>(b + b_lo, b_box, 0, kk));
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)
+        MMA::ss(s, tf32_desc<kRowBytes>(a, a_box, 0, kk),
+                tf32_desc<kRowBytes>(b, b_box, 0, kk));
 }
 
 // ------------------------------------------------------------- K/V ring
@@ -503,6 +838,32 @@ inline cudaError_t encode_operand(CUtensorMap* map, const void* ptr, int batch,
         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The tensor map of a contiguous float32 (B, H, rows, cols) plane, boxes of
+// `box_cols` columns (32: 128-byte rows, swizzle 128 bytes; 16: 64-byte
+// rows, swizzle 64 bytes) x `box_rows` rows.
+inline cudaError_t encode_plane(CUtensorMap* map, const float* ptr, int batch,
+                                int heads, int rows, int cols, int box_cols,
+                                int box_rows) {
+    const EncodeTiledFn encode = encode_tiled();
+    if (encode == nullptr) return cudaErrorNotSupported;
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(cols),
+                                static_cast<cuuint64_t>(rows),
+                                static_cast<cuuint64_t>(heads),
+                                static_cast<cuuint64_t>(batch)};
+    const cuuint64_t row = static_cast<cuuint64_t>(cols) * 4;
+    const cuuint64_t strides[3] = {row, row * rows, row * rows * heads};
+    const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols),
+                               static_cast<cuuint32_t>(box_rows), 1, 1};
+    const cuuint32_t unit[4] = {1, 1, 1, 1};
+    const CUresult res = encode(
+        map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(ptr),
+        dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+        box_cols * 4 == kRowBytes ? CU_TENSOR_MAP_SWIZZLE_128B
+                                  : CU_TENSOR_MAP_SWIZZLE_64B,
+        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

@@ -9,35 +9,43 @@ needs.
 
 * ``flash_attention(q, k, v, emit_lse=False)`` — on CUDA tensors launches
   kernel ``flash_fwd`` (``csrc/flash_attention.cu``: ``flash_fwd_wgmma_kernel``
-  in bfloat16 at D = 64 and 128, ``flash_fwd_kernel`` otherwise), which
-  replaces the TPU kernel ``pai_tpu/kernels/flash_attention.py::_fwd_kernel``
-  (both of its instantiations); on CPU tensors takes the plain version. When
-  a gradient is wanted it goes through ``FlashAttention``, as the JAX function
-  goes through its ``custom_vjp``.
+  at D = 64 and 128, ``flash_fwd_kernel`` otherwise), which replaces the TPU
+  kernel ``pai_tpu/kernels/flash_attention.py::_fwd_kernel`` (both of its
+  instantiations); on CPU tensors takes the plain version. When a gradient
+  is wanted it goes through ``FlashAttention``, as the JAX function goes
+  through its ``custom_vjp``.
 * ``flash_attention_backward(q, k, v, o, lse, do)`` — ``(dq, dk, dv)``: on
   CUDA tensors launches kernels ``flash_bwd_dq`` and ``flash_bwd_dkv``
-  (``csrc/flash_attention_bwd.cu``; as ``flash_bwd_dq_wgmma_kernel`` and
-  ``flash_bwd_dkv_wgmma_kernel`` in bfloat16 at D = 64 and 128, else
-  ``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel``), which replace
-  ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``; ``delta = rowsum(do * o)`` is
-  one PyTorch op before them, as the JAX package computes it in XLA. On CPU
-  tensors the plain version.
-* ``flash_attention_plain`` / ``flash_attention_backward_plain`` — the same
-  functions as blockwise PyTorch (``pai_tpu/ops/attention.py::
-  _blockwise_attention`` and ``_flash_backward``'s formulas): the oracles the
-  kernels are held against. A full 16,384 x 16,384 logits tensor would be
-  1 GB per head, hence blockwise.
+  (``csrc/flash_attention_bwd.cu``; ``flash_bwd_dq_wgmma_kernel`` in
+  bfloat16 at D = 64 and 128, ``flash_bwd_dkv_wgmma_kernel`` there in
+  bfloat16 and float32, else ``flash_bwd_dq_kernel`` and
+  ``flash_bwd_dkv_kernel``), which replace ``_bwd_dq_kernel`` and
+  ``_bwd_dkv_kernel``; ``delta = rowsum(do * o)`` is one PyTorch op before
+  them, as the JAX package computes it in XLA. On CPU tensors the plain
+  version.
+* ``flash_split(xs, modes)`` — the split pass (``csrc/flash_split.cu``,
+  kernel ``flash_split``; it replaces no TPU kernel): the float32 operands
+  of the forward and dkv at D = 64 and 128 as TF32 hi and lo planes,
+  K-major and transposed, which their ``wgmma`` kernels read. The two
+  wrappers launch it themselves before those kernels.
+* ``flash_attention_plain`` / ``flash_attention_backward_plain`` /
+  ``flash_split_plain`` — the same functions in plain PyTorch (the first two
+  blockwise, by ``pai_tpu/ops/attention.py::_blockwise_attention`` and
+  ``_flash_backward``'s formulas): the oracles the kernels are held
+  against. A full 16,384 x 16,384 logits tensor would be 1 GB per head,
+  hence blockwise.
 
 Bound on an H100: operations — ``4*B*H*T*T*D`` forward, ``6*...`` for dq and
 ``8*...`` for dk and dv, against some ``4-8*B*H*T*D`` elements moved. All
 three kernels run on the tensor cores (989 TFLOP/s dense bf16; float32 as
 3xTF32, float32 accuracy at up to a third of the 495 TFLOP/s TF32 rate), by
 a route fixed by the operands' type and head dim in the sources'
-``launch_for_d``: all three in bfloat16 at D = 64 and 128 on Hopper's
-warpgroup ``wgmma`` with TMA tile loads (``csrc/flash_wgmma.cuh``),
-everything else on warp-level ``mma.sync`` (``csrc/flash_mma.cuh``). No
-launch falls back to another route. The kernels' designs are described at
-the top of their ``.cu`` sources; measured times are in PERF.md.
+``launch_for_d``: at D = 64 and 128 on Hopper's warpgroup ``wgmma`` with
+TMA tile loads (``csrc/flash_wgmma.cuh``) all three in bfloat16 and the
+forward and dkv in float32, everything else on warp-level ``mma.sync``
+(``csrc/flash_mma.cuh``). No launch falls back to another route. The
+kernels' designs are described at the top of their ``.cu`` sources;
+measured times are in PERF.md.
 
 The wrappers take strided views (last dimension contiguous, the other strides
 multiples of 16 bytes): the q, k, v slices of one packed
@@ -63,6 +71,18 @@ from pai_tpu_torch import kernels
 HEAD_DIMS = (32, 64, 128, 256)
 BLOCK_Q = 128  # the kernel's query tile; T must be a multiple of it
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# float32 at these head dims: the forward and dkv on wgmma, reading the
+# split pass's planes
+SPLIT_HEAD_DIMS = (64, 128)
+# what the split pass writes of an operand: its K-major hi and lo planes,
+# its transposed ones, or both (K-major first)
+SPLIT_KMAJOR, SPLIT_TRANSPOSED, SPLIT_BOTH = 1, 2, 3
+# the planes each kernel reads: q, k, v (forward); q, k, v, do (dkv)
+FORWARD_SPLIT = (SPLIT_KMAJOR, SPLIT_KMAJOR, SPLIT_TRANSPOSED)
+DKV_SPLIT = (SPLIT_BOTH, SPLIT_KMAJOR, SPLIT_KMAJOR, SPLIT_BOTH)
+# position p of each group of 8 rows of a transposed plane holds row
+# _SPLIT_ORDER[p]: the order of the columns in a TF32 A fragment's k slots
+_SPLIT_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 
 Result = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -221,6 +241,94 @@ def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
+def split_planes(modes) -> int:
+    """How many planes the split pass writes for operands of ``modes``."""
+    return sum(2 * ((m & SPLIT_KMAJOR) > 0) + 2 * ((m & SPLIT_TRANSPOSED) > 0)
+               for m in modes)
+
+
+def _split_check(xs, modes) -> None:
+    if not 0 < len(xs) <= 4 or len(xs) != len(modes):
+        raise ValueError(f"flash_split takes 1-4 operands with one mode "
+                         f"each, got {len(xs)} and {len(modes)}")
+    for x in xs:
+        if x.shape != xs[0].shape or x.dtype != torch.float32 \
+                or x.device != xs[0].device:
+            raise ValueError("flash_split takes float32 (B, H, T, D) "
+                             "operands of one shape and device")
+    b, h, t, d = xs[0].shape
+    if d not in SPLIT_HEAD_DIMS or t % 32:
+        raise ValueError(f"flash_split is built for D in {SPLIT_HEAD_DIMS} "
+                         f"and T a multiple of 32, got {tuple(xs[0].shape)}")
+    if any(m not in (SPLIT_KMAJOR, SPLIT_TRANSPOSED, SPLIT_BOTH)
+           for m in modes):
+        raise ValueError(f"flash_split modes must be 1, 2 or 3, got {modes}")
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 (10 mantissa bits, to nearest, ties to
+    the even neighbour), as ``cvt.rn.tf32.f32`` rounds a finite value."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x0FFF + ((bits >> 13) & 1)) & -0x2000).view(
+        torch.float32)
+
+
+def flash_split_plain(xs, modes) -> torch.Tensor:
+    """The split pass in plain PyTorch: ``(planes, B*H*T*D)`` float32, per
+    operand in order its K-major planes (``hi = tf32_round(x)``, ``lo = x -
+    hi``, a ``(B, H, T, D)`` plane each) where ``mode & SPLIT_KMAJOR``, then
+    its transposed ones (hi and lo of ``x`` as ``(B, H, D, T)``, each group
+    of 8 along T in ``_SPLIT_ORDER``) where ``mode & SPLIT_TRANSPOSED``."""
+    _split_check(xs, modes)
+    t = xs[0].shape[2]
+    order = torch.tensor(_SPLIT_ORDER, device=xs[0].device)
+    rows = (torch.arange(0, t, 8, device=xs[0].device)[:, None]
+            + order).reshape(t)
+    planes = []
+    for x, mode in zip(xs, modes):
+        hi = tf32_round(x)
+        lo = x - hi
+        if mode & SPLIT_KMAJOR:
+            planes += [hi.reshape(-1), lo.reshape(-1)]
+        if mode & SPLIT_TRANSPOSED:
+            planes += [p.transpose(-1, -2)[..., rows].reshape(-1)
+                       for p in (hi, lo)]
+    return torch.stack(planes)
+
+
+def flash_split(xs, modes) -> torch.Tensor:
+    """``flash_split_plain``'s planes: kernel ``flash_split`` (one launch
+    for every operand) on CUDA tensors, the plain version on CPU tensors.
+    Operands may be strided views as the flash kernels take them."""
+    _split_check(xs, modes)
+    if not xs[0].is_cuda:  # CPU tensors: the plain version
+        return flash_split_plain(xs, modes)
+    for i, x in enumerate(xs):
+        _check_strides(f"operand {i}", x)
+    b, h, t, d = xs[0].shape
+    planes = torch.empty((split_planes(modes), b * h * t * d),
+                         dtype=torch.float32, device=xs[0].device)
+    n = len(xs)
+    pointers = (ctypes.c_void_p * n)(*(x.data_ptr() for x in xs))
+    strides = (ctypes.c_longlong * (3 * n))(*(
+        s for x in xs for s in x.stride()[:3]))
+    codes = (ctypes.c_int * n)(*modes)
+    lib = _split_library()
+    with torch.cuda.device(planes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.pai_flash_split(n, pointers, strides, codes,
+                                   planes.data_ptr(), b, h, t, d, stream)
+    kernels.check_launch(code, "flash_split")
+    kernels.launch_counts["flash_split"] += 1
+    return planes
+
+
+def _splits(x: torch.Tensor) -> bool:
+    """Whether the forward and dkv read split planes of ``x``'s type and
+    head dim (float32 at D = 64 and 128: their wgmma route)."""
+    return x.dtype == torch.float32 and x.shape[-1] in SPLIT_HEAD_DIMS
+
+
 # --------------------------------------------------------------------------
 # the kernel's launcher
 # --------------------------------------------------------------------------
@@ -229,7 +337,7 @@ def _library() -> ctypes.CDLL:
     if not getattr(lib, "_pai_declared", False):
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.pai_flash_fwd.argtypes = (
-            [ptr] * 5 + [i32] * 5 + [i64] * 12 + [ptr])
+            [ptr] * 5 + [i32] * 5 + [i64] * 12 + [ptr, ptr])
         lib.pai_flash_fwd.restype = i32
         lib._pai_declared = True
     return lib
@@ -243,9 +351,21 @@ def _backward_library() -> ctypes.CDLL:
         lib.pai_flash_bwd_dq.argtypes = (
             [ptr] * 7 + [i32] * 5 + [strides, ptr])
         lib.pai_flash_bwd_dkv.argtypes = (
-            [ptr] * 8 + [i32] * 5 + [strides, ptr])
+            [ptr] * 8 + [i32] * 5 + [strides, ptr, ptr])
         lib.pai_flash_bwd_dq.restype = i32
         lib.pai_flash_bwd_dkv.restype = i32
+        lib._pai_declared = True
+    return lib
+
+
+def _split_library() -> ctypes.CDLL:
+    lib = kernels.load_library("flash_split")
+    if not getattr(lib, "_pai_declared", False):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.pai_flash_split.argtypes = [
+            i32, ctypes.POINTER(ptr), ctypes.POINTER(ctypes.c_longlong),
+            ctypes.POINTER(i32), ptr, i32, i32, i32, i32, ptr]
+        lib.pai_flash_split.restype = i32
         lib._pai_declared = True
     return lib
 
@@ -284,6 +404,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_strides(name, x)
     lib = _library()
+    planes = flash_split((q, k, v), FORWARD_SPLIT) if _splits(q) else None
     out = _token_major(b, h, t, d, q)
     lse = torch.empty((b * h, t), dtype=torch.float32, device=q.device) \
         if emit_lse else None
@@ -293,7 +414,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if emit_lse else None, b, h, t, d,
             _DTYPE_CODES[q.dtype], *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], *out.stride()[:3], stream)
+            *v.stride()[:3], *out.stride()[:3],
+            None if planes is None else planes.data_ptr(), stream)
     kernels.check_launch(code, "flash_fwd")
     kernels.launch_counts["flash_fwd"] += 1
     kernels.launched_flops += flash_attention_flops(q.shape)
@@ -352,12 +474,16 @@ def launch_dq(call: BackwardLaunch) -> None:
 
 
 def launch_dkv(call: BackwardLaunch) -> None:
-    """Kernel ``flash_bwd_dkv`` into ``call.dk`` and ``call.dv``."""
+    """Kernel ``flash_bwd_dkv`` into ``call.dk`` and ``call.dv`` (after the
+    split pass where its route reads split planes)."""
+    q, k, v, do = call.keep[:4]
+    planes = flash_split((q, k, v, do), DKV_SPLIT) if _splits(q) else None
     with torch.cuda.device(call.dq.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = call.lib.pai_flash_bwd_dkv(*call.inputs, call.dk.data_ptr(),
-                                          call.dv.data_ptr(), *call.common,
-                                          stream)
+        code = call.lib.pai_flash_bwd_dkv(
+            *call.inputs, call.dk.data_ptr(), call.dv.data_ptr(),
+            *call.common, None if planes is None else planes.data_ptr(),
+            stream)
     kernels.check_launch(code, "flash_bwd_dkv")
     kernels.launch_counts["flash_bwd_dkv"] += 1
     kernels.launched_flops += call.flops[1]

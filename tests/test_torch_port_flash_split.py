@@ -21,6 +21,15 @@ card.
 The float32 sums here round to nearest. The tensor cores add into their
 accumulators with truncation, which the kernels counter with partial sums of
 32 keys; that is held on the card by ``chip_smoke.py``, not here.
+
+The float32 forward and dkv at D = 64 and 128 run on wgmma, on the planes of
+the split pass (``kernels.flash_attention.flash_split``): hi rounded to
+TF32 to nearest as above (left to the tensor core's truncation, the forward
+and dkv land at up to 3.3 times the plain version's error on these cases,
+outside the gate), the sums over keys (queries in dkv) in partials of 32.
+Their emulation is held to the same gate with its one-term control, and
+the split pass's plain version is pinned: planes, transposition and the
+order of each 8 rows, inverted back to the operands bit for bit.
 """
 
 import numpy as np
@@ -75,21 +84,22 @@ def mm_single_p(p, b):
     return torch.matmul(p.bfloat16().float(), b)
 
 
-def emulate_forward(q, k, v, mm_qk, mm_pv):
-    """The forward kernel's loop: S per K/V tile in log2 units, online
-    softmax from m = -inf, O += P V; returns (o float32, lse)."""
+def emulate_forward(q, k, v, mm_qk, mm_pv, block_k=BLOCK_K):
+    """The forward kernel's loop: S per K/V tile of `block_k` keys in log2
+    units, online softmax from m = -inf, O += P V; returns (o float32,
+    lse)."""
     b, h, t, d = q.shape
     scale = LOG2E / d ** 0.5
     m = torch.full((b, h, t, 1), float("-inf"))
     l = torch.zeros((b, h, t, 1))
     acc = torch.zeros((b, h, t, d))
-    for k0 in range(0, t, BLOCK_K):
-        s = mm_qk(q, k[:, :, k0:k0 + BLOCK_K].transpose(-1, -2)) * scale
+    for k0 in range(0, t, block_k):
+        s = mm_qk(q, k[:, :, k0:k0 + block_k].transpose(-1, -2)) * scale
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         alpha = torch.exp2(m - m_new)
         p = torch.exp2(s - m_new)
         l = l * alpha + p.sum(-1, keepdim=True)
-        acc = acc * alpha + mm_pv(p, v[:, :, k0:k0 + BLOCK_K])
+        acc = acc * alpha + mm_pv(p, v[:, :, k0:k0 + block_k])
         m = m_new
     lse = (m + torch.log2(l)) / LOG2E
     return acc / l, lse.reshape(b * h, t)
@@ -259,3 +269,131 @@ def test_tf32_rounding_is_round_to_nearest_even():
     assert torch.equal(tf32_truncate(lo), lo)
     rel = (hi.double() + lo.double() - x.double()).abs() / x.double().abs()
     assert 0.0 < float(rel.max()) < 2.0 ** -21
+
+
+# ---------------------------------------------------------------------------
+# the float32 forward and dkv on wgmma (flash_attention.cu,
+# flash_attention_bwd.cu): the split pass's planes (hi rounded to nearest,
+# lo = x - hi, which the tensor core truncates), three products a step, and
+# the products that sum over keys (or queries) in partials of 32
+# ---------------------------------------------------------------------------
+PARTIAL = 32  # kPnKeys
+WGMMA_BLOCK_K = {64: 64, 128: 32}  # the float32 forward's key tile per D
+
+
+def mm_3xtf32_partials(a, b):
+    """a @ b summed over a's last axis in partials of 32, each partial
+    three TF32 terms, the partials added in float32 in order."""
+    out = None
+    for k0 in range(0, a.shape[-1], PARTIAL):
+        part = mm_3xtf32(a[..., k0:k0 + PARTIAL], b[..., k0:k0 + PARTIAL, :])
+        out = part if out is None else out + part
+    return out
+
+
+@pytest.mark.parametrize("shape,seed,peak", CASES)
+def test_wgmma_3xtf32_within_twice_the_float32_error(shape, seed, peak):
+    """The float32 wgmma route's arithmetic, forward (o, lse) and dkv (dk,
+    dv), within twice the plain float32 version's error against float64;
+    TF32 alone (one term) far outside."""
+    q, k, v, do = inputs(shape, seed, peak)
+    o64, lse64, dk64, dv64, _ = reference64(q, k, v, do)
+    block_k = WGMMA_BLOCK_K.get(shape[-1], 64)
+    o, lse = emulate_forward(q, k, v, mm_3xtf32, mm_3xtf32_partials,
+                                   block_k)
+    plain_o, plain_lse = fa.flash_attention_plain(q, k, v, emit_lse=True)
+    for got, plain, ref in ((o, plain_o, o64), (lse, plain_lse, lse64)):
+        assert max_err(got, ref) <= 2.0 * max_err(plain, ref)
+    delta = fa._delta(plain_o, do)
+    dk, dv = emulate_dkv(q, k, v, do, plain_lse, delta, mm_3xtf32,
+                         mm_3xtf32_partials)
+    _, plain_dk, plain_dv = fa.flash_attention_backward_plain(
+        q, k, v, plain_o, plain_lse, do)
+    for got, plain, ref in ((dk, plain_dk, dk64), (dv, plain_dv, dv64)):
+        assert max_err(got, ref) <= 2.0 * max_err(plain, ref)
+
+    def one_term(a, b):
+        return torch.matmul(tf32_round(a), tf32_round(b))
+
+    o1 = emulate_forward(q, k, v, one_term, one_term, block_k)[0]
+    assert max_err(o1, o64) > 8.0 * max_err(plain_o, o64)
+    dk1, dv1 = emulate_dkv(q, k, v, do, plain_lse, delta, one_term,
+                           one_term)
+    assert max_err(dk1, dk64) > 8.0 * max_err(plain_dk, dk64)
+    assert max_err(dv1, dv64) > 8.0 * max_err(plain_dv, dv64)
+
+
+def _packed_operands(seed, t=256, heads=2, d=64):
+    """q, k, v as strided views of one packed (N, T, heads, 3, D) tensor,
+    as the attention block hands them over, and a contiguous do."""
+    rng = np.random.default_rng(seed)
+    packed = torch.from_numpy(rng.normal(0.0, 1.0, (2, t, heads, 3, d))
+                              .astype(np.float32))
+    q, k, v = (packed[:, :, :, i].permute(0, 2, 1, 3) for i in range(3))
+    do = torch.from_numpy(rng.normal(0.0, 1.0, q.shape).astype(np.float32))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_split_planes_invert_to_the_operands(d):
+    """The split pass's plain version on packed views: per operand its
+    K-major hi and lo, then its transposed ones, in dkv's order; hi is the
+    operand rounded to TF32 (to nearest even), hi + lo is the operand bit
+    for bit, and each transposed plane, its groups of 8 rows put back in
+    order and transposed, is the K-major one."""
+    xs = _packed_operands(20 + d, d=d)
+    assert not xs[0].is_contiguous()
+    planes = fa.flash_split(xs, fa.DKV_SPLIT)  # CPU tensors: the plain one
+    assert torch.equal(planes, fa.flash_split_plain(xs, fa.DKV_SPLIT))
+    assert planes.shape == (fa.split_planes(fa.DKV_SPLIT), xs[0].numel())
+    assert planes.shape[0] == 12
+    b, h, t, _ = xs[0].shape
+    # the order in which the accumulator's fragment holds 8 columns
+    order = torch.tensor([0, 2, 4, 6, 1, 3, 5, 7])
+    inverse = torch.argsort((torch.arange(0, t, 8)[:, None] + order)
+                            .reshape(t))
+    at = 0
+    for x, mode in zip(xs, fa.DKV_SPLIT):
+        kmajor = []
+        if mode & fa.SPLIT_KMAJOR:
+            hi, lo = (planes[at + i].view(b, h, t, d) for i in range(2))
+            assert torch.equal(hi, tf32_round(x))
+            assert torch.equal(tf32_round(hi), hi)
+            assert torch.equal(hi + lo, x)
+            kmajor = [hi, lo]
+            at += 2
+        if mode & fa.SPLIT_TRANSPOSED:
+            back = [planes[at + i].view(b, h, d, t)[..., inverse]
+                    .transpose(-1, -2) for i in range(2)]
+            assert torch.equal(back[0] + back[1], x)
+            assert torch.equal(back[0], tf32_round(x))
+            for got, want in zip(back, kmajor):
+                assert torch.equal(got, want)
+            at += 2
+    assert at == planes.shape[0]
+    # the forward's planes: q and k K-major, v transposed
+    forward = fa.flash_split(xs[:3], fa.FORWARD_SPLIT)
+    assert torch.equal(forward[:4], planes[[0, 1, 4, 5]])
+    assert torch.equal(forward[4:], fa.flash_split(xs[2:3],
+                                                   (fa.SPLIT_TRANSPOSED,)))
+
+
+def test_split_routes_and_refusals():
+    """float32 at D = 64 and 128 splits (the wgmma route), nothing else
+    does; the split pass refuses other head dims, types and modes."""
+    for d, dtype, splits in ((64, torch.float32, True),
+                             (128, torch.float32, True),
+                             (32, torch.float32, False),
+                             (256, torch.float32, False),
+                             (64, torch.bfloat16, False)):
+        assert fa._splits(torch.zeros((1, 1, 128, d), dtype=dtype)) is splits
+    x = torch.zeros((1, 1, 128, 32))
+    with pytest.raises(ValueError):
+        fa.flash_split((x,), (fa.SPLIT_KMAJOR,))
+    y = torch.zeros((1, 1, 128, 64))
+    with pytest.raises(ValueError):
+        fa.flash_split((y.bfloat16(),), (fa.SPLIT_KMAJOR,))
+    with pytest.raises(ValueError):
+        fa.flash_split((y,), (4,))
+    with pytest.raises(ValueError):
+        fa.flash_split((y,) * 5, (1,) * 5)

@@ -269,4 +269,4 @@ def test_cpu_tensors_launch_no_kernel():
     tm.ssim_per_image(torch.from_numpy(p), torch.from_numpy(t))
     assert kernels.launch_counts == before
     assert set(before) == {"ssim_map", "ssim_scalar", "flash_fwd",
-                           "flash_bwd_dq", "flash_bwd_dkv"}
+                           "flash_bwd_dq", "flash_bwd_dkv", "flash_split"}
