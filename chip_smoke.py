@@ -25,11 +25,11 @@ printing one JSON line:
    and spills (``-Xptxas -v``) and, where the toolkit has ``cuobjdump``, the
    counts of HMMA (warp-level tensor-core), HGMMA (warpgroup ``wgmma``) and
    UTMALDG (TMA load) instructions in its SASS: the forward, dq and dkv in
-   bfloat16 at D = 64 and 128, and the forward and dkv in float32 there,
-   must have HGMMA and UTMALDG, every other flash kernel (forward, dq, dkv)
-   HMMA, none may spill up to D = 128 and ptxas may serialise no kernel's
-   wgmmas (C7520); the same report of the three SSIM kernels and the split
-   pass, none of which may spill.
+   bfloat16 at D = 64 and 128, the forward and dkv in float32 there and dq
+   in float32 at D = 64, must have HGMMA and UTMALDG, every other flash
+   kernel (forward, dq, dkv) HMMA, none may spill up to D = 128 and ptxas
+   may serialise no kernel's wgmmas (C7520); the same report of the three
+   SSIM kernels and the split pass, none of which may spill.
 2. ``kernels`` — each kernel's wrapper against its plain version on CUDA
    tensors at the shapes the report path gives it and at ragged and
    multi-channel shapes; times by CUDA events (warmed, median of 25 samples
@@ -50,7 +50,8 @@ printing one JSON line:
    CUDA cores' rate; beside the kernel's time the plain version's and that
    of PyTorch's own fused attention call on the same tensors (timed here,
    used nowhere in the port). The split pass (``flash_split``) of the
-   float32 forward and dkv at the Palette paths' shapes and on packed views,
+   float32 forward and backward at the Palette paths' shapes and on packed
+   views,
    bit-equal to its plain version, timed beside it.
 3. ``report``  — a 32-pair 256x256 synthetic dataset written with the port's
    native PNG writer, a full-width Pix2Pix with random weights from a seeded
@@ -330,8 +331,9 @@ def device_kernel_us(fn, kernel_names, calls=20):
 
 
 # the CUDA kernels each flash wrapper launches, as the profiler and ptxas
-# name them: warp-level mma.sync, and at bfloat16 D = 64 and 128 all three
-# on warpgroup wgmma with TMA loads
+# name them: warp-level mma.sync, and at D = 64 and 128 on warpgroup wgmma
+# with TMA loads (all three in bfloat16; in float32 the forward, dkv and,
+# at D = 64, dq)
 FLASH_KERNEL_NAMES = {
     "flash_fwd": ("flash_fwd_kernel", "flash_fwd_wgmma_kernel"),
     "flash_bwd_dq": ("flash_bwd_dq_kernel", "flash_bwd_dq_wgmma_kernel"),
@@ -341,11 +343,12 @@ WGMMA_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
 # the wgmma instantiations of each type: (kernel, D)
 WGMMA_INSTANTIATIONS = {
     "bfloat16": [(k, d) for k in sorted(WGMMA_KERNELS) for d in (64, 128)],
-    "float32": [(k, d) for k in ("flash_bwd_dkv_wgmma_kernel",
-                                 "flash_fwd_wgmma_kernel")
-                for d in (64, 128)]}
-# the split pass of the float32 forward and dkv at D = 64 and 128, as the
-# profiler and ptxas name it
+    "float32": sorted([(k, d) for k in ("flash_bwd_dkv_wgmma_kernel",
+                                        "flash_fwd_wgmma_kernel")
+                       for d in (64, 128)]
+                      + [("flash_bwd_dq_wgmma_kernel", 64)])}
+# the split pass of the float32 forward and backward at D = 64 and 128, as
+# the profiler and ptxas name it
 SPLIT_KERNEL = "flash_split_kernel"
 # the head dims at which ptxas must report no spills for them
 NO_SPILL_HEAD_DIMS = (32, 64, 128)
@@ -419,7 +422,8 @@ def phase_build():
     (dtype, D), {(wrapper, "float32" or "bfloat16", D): route}, read from
     the name of the kernel that launched. Fails if a kernel spills at
     D <= 128, if a wgmma kernel (the forward, dq and dkv in bfloat16 at
-    D = 64 and 128, the forward and dkv in float32 there, all ten present)
+    D = 64 and 128, the forward and dkv in float32 there and dq in float32
+    at D = 64, all eleven present)
     lacks HGMMA or UTMALDG or has its wgmmas serialised by ptxas (C7520),
     if another flash kernel lacks HMMA, or if the split pass spills."""
     from pai_tpu_torch import kernels
@@ -1030,17 +1034,18 @@ def split_bound(shape, modes):
 
 
 def phase_split(device):
-    """The split pass of the float32 forward and dkv (their wgmma route at
-    D = 64 and 128) against its plain version on the card: bit for bit, at
-    the Palette paths' shapes and on packed views, its launch counted, timed
-    beside the plain version."""
+    """The split pass of the float32 forward and backward (their wgmma
+    routes at D = 64 and 128; one pass per backward call for dq and dkv)
+    against its plain version on the card: bit for bit, at the Palette
+    paths' shapes and on packed views, its launch counted, timed beside the
+    plain version."""
     from pai_tpu_torch import kernels
     from pai_tpu_torch.kernels import flash_attention as fa
 
     cases = [((2, 4, 16384, 64), "forward", fa.FORWARD_SPLIT),
              ((2, 4, 4096, 128), "forward", fa.FORWARD_SPLIT),
-             ((4, 4, 16384, 64), "dkv", fa.DKV_SPLIT),
-             ((4, 4, 4096, 128), "dkv", fa.DKV_SPLIT)]
+             ((4, 4, 16384, 64), "backward", fa.BACKWARD_SPLIT),
+             ((4, 4, 4096, 128), "backward", fa.BACKWARD_SPLIT)]
     results = []
     for seed, (shape, kind, modes) in enumerate(cases):
         xs = random_qkv(shape, 120 + seed, device) + random_qkv(
@@ -1650,7 +1655,8 @@ BF16_CARD_CORR = 0.5
 # recomputation, and backward once
 TRAIN_LAUNCHES_PER_STEP = {"flash_fwd": 20, "flash_bwd_dq": 10,
                            "flash_bwd_dkv": 10}
-# float32: the forward and dkv each split their operands once per launch
+# float32: each forward launch and each backward call (dq and dkv) split
+# their operands once
 TRAIN_SPLIT_LAUNCHES_PER_STEP = (TRAIN_LAUNCHES_PER_STEP["flash_fwd"]
                                  + TRAIN_LAUNCHES_PER_STEP["flash_bwd_dkv"])
 TRAIN_IMAGES, VAL_IMAGES, TRAIN_BATCH = 16, 2, 4
@@ -4695,7 +4701,8 @@ def graph_flash_launches(device):
     """One flash_fwd, and one dq and dkv, each recorded alone in a CUDA
     graph and replayed: bit-equal to the eager launch, within the flash
     gates of the plain version, one launch counted per replay; in bfloat16
-    and in float32 (whose forward and dkv record their split pass too)."""
+    and in float32 (whose forward and backward record their split pass
+    too)."""
     from pai_tpu_torch import kernels
     from pai_tpu_torch.kernels import flash_attention as fa
     from pai_tpu_torch.utils.graphs import CapturedGraph, GraphStream
@@ -4764,8 +4771,9 @@ def graph_flash_launches(device):
 
 def graph_flash_launches_float32(device, side):
     """graph_flash_launches' checks in float32 at the float32 Palette paths'
-    shapes (GRAPH_FLASH_SHAPES): the forward and dkv on wgmma, each after
-    its split pass, recorded in the graph with it."""
+    shapes (GRAPH_FLASH_SHAPES): the forward, dq and dkv on wgmma, the
+    forward and the backward each after their split pass, recorded in the
+    graph with it."""
     from pai_tpu_torch import kernels
     from pai_tpu_torch.kernels import flash_attention as fa
     from pai_tpu_torch.utils.graphs import CapturedGraph
@@ -5172,7 +5180,8 @@ def kernels_line(cases, report_batch, launches, flash_cases,
         "source": "pai_tpu_torch/kernels/csrc/flash_split.cu",
         "replaces": "none: the port's own split of float32 operands into "
                     "TF32 hi and lo planes for the wgmma kernels that "
-                    "replace pai_tpu/kernels/flash_attention.py:148 and :316",
+                    "replace pai_tpu/kernels/flash_attention.py:148, :290 "
+                    "and :316",
         "launches": palette_launches["flash_split"],
         "max_abs_err": max(e["max_abs_err"] for e in split_cases),
         "shape": main["shape"], "for": main["for"], "ms": main["ms"],

@@ -80,6 +80,7 @@ namespace {
 
 using flash_mma::Warp;
 using flash_mma::smem_addr;
+using flash_wgmma::SlotRing;
 
 struct FlashParams {
     const void* q;
@@ -538,15 +539,6 @@ template <int D, int BK, int SLOTS> struct Tf32FwdLayout {
     // barriers: Q, then full and empty of each slot
     static constexpr int kBytes = kBar + 8 * (1 + 2 * SLOTS) + 1024;
     static_assert(kBytes <= 232448, "shared memory of one block");
-};
-
-template <int SLOTS> struct SlotRing {
-    uint32_t base;
-    __device__ uint32_t once() const { return base; }
-    __device__ uint32_t full(int s) const { return base + 8 * (1 + s); }
-    __device__ uint32_t empty(int s) const {
-        return base + 8 * (1 + SLOTS + s);
-    }
 };
 
 // The tensor maps of the six planes: Q hi, Q lo, K hi, K lo, V^T hi, V^T lo.

@@ -9,8 +9,9 @@
 //
 //     P  = exp(s^2 Q K^T - lse)          (recomputed, never stored)
 //     dS = P * (dO V^T - delta)
-//     dQ = s^2 dS K                      flash_bwd_dq_kernel, and at bf16
-//                                        D = 64 and 128
+//     dQ = s^2 dS K                      flash_bwd_dq_kernel, and at
+//                                        D = 64 (bf16 and float32) and
+//                                        D = 128 (bf16)
 //                                        flash_bwd_dq_wgmma_kernel
 //     dV = P^T dO,  dK = s^2 dS^T Q      flash_bwd_dkv_kernel, and at
 //                                        D = 64 and 128 (bf16 and float32)
@@ -26,8 +27,9 @@
 // bf16 terms, float32 operands as 3xTF32 (float32 accuracy, never TF32
 // alone). On Hopper's warpgroup wgmma with TMA tile loads
 // (flash_wgmma.cuh): both kernels in bfloat16 at D = 64 and D = 128 (the
-// bf16-mixed Palette path's shapes) and dkv in float32 there too (the CLI
-// default's; on the split pass's TF32 hi and lo planes, flash_split.cu).
+// bf16-mixed Palette path's shapes), and in float32 (the CLI default's) dkv
+// there too and dq at D = 64, both on the TF32 hi and lo planes of one
+// split pass per backward call (flash_split.cu).
 // Everything else on warp-level mma.sync (flash_mma.cuh): bf16 m16n8k16
 // for bfloat16 operands, 3xTF32 m16n8k8 for float32 ones. launch_for_d
 // fixes the route by (dtype, D).
@@ -52,6 +54,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <string.h>
 
 #include "flash_mma.cuh"
 #include "flash_wgmma.cuh"
@@ -644,6 +647,19 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                                   threadIdx.x >> 7, n_tiles);
 }
 
+// The split pass's fourteen planes of a float32 backward call, read by
+// both kernels, in its order: Q hi, Q lo, Q^T hi, Q^T lo, K hi, K lo, K^T
+// hi, K^T lo, V hi, V lo, dO hi, dO lo, dO^T hi, dO^T lo (each operand's
+// K-major planes, then its transposed ones; V has no transposed planes).
+// A kernel's tensor maps are indexed alike; the maps of planes it does not
+// read stay zero.
+constexpr int kPlanes = 14;
+constexpr int kPlaneQ = 0, kPlaneQt = 2, kPlaneK = 4, kPlaneKt = 6,
+              kPlaneV = 8, kPlaneDo = 10, kPlaneDot = 12;
+struct alignas(64) BwdTf32Maps {
+    CUtensorMap m[kPlanes];
+};
+
 // ---------------------------------------------- dK, dV: wgmma, float32
 // float32 at D = 64 and D = 128 (the CLI default's Palette training shapes)
 // as 3xTF32 on wgmma m64nNk8: the bf16 route's block and split of the
@@ -725,18 +741,10 @@ template <int S1, int S2> struct DkvTf32Barriers {
     }
 };
 
-// The tensor maps of the twelve planes, in the split pass's order: Q hi, Q
-// lo, Q^T hi, Q^T lo, K hi, K lo, V hi, V lo, dO hi, dO lo, dO^T hi, dO^T lo.
-struct alignas(64) DkvTf32Maps {
-    CUtensorMap m[12];
-};
-constexpr int kMapQ = 0, kMapQt = 2, kMapK = 4, kMapV = 6, kMapDo = 8,
-              kMapDot = 10;
-
 // Warpgroup wg's SS operand of query tile `tile` (Q and lse, or dO and
 // delta) into its R1 stage: issued where `issue` holds (its first thread).
 template <int D, int BQ, int S1, int S2>
-__device__ __forceinline__ void dkv_tf32_load_r1(const DkvTf32Maps& maps,
+__device__ __forceinline__ void dkv_tf32_load_r1(const BwdTf32Maps& maps,
                                                  const BwdParams& p, int bh,
                                                  uint32_t base,
                                                  DkvTf32Barriers<S1, S2> bar,
@@ -746,7 +754,7 @@ __device__ __forceinline__ void dkv_tf32_load_r1(const DkvTf32Maps& maps,
     namespace fw = flash_wgmma;
     const int s = tile % S1;
     const uint32_t dst = base + L::kR1 + (wg * S1 + s) * L::kStage;
-    const CUtensorMap* m = &maps.m[wg == 0 ? kMapQ : kMapDo];
+    const CUtensorMap* m = &maps.m[wg == 0 ? kPlaneQ : kPlaneDo];
     const long long row = static_cast<long long>(bh) * p.t + tile * BQ;
     fw::mbar_expect_tx_if(issue, bar.r1(wg, s), L::kStage + BQ * 4);
 #pragma unroll
@@ -765,7 +773,7 @@ __device__ __forceinline__ void dkv_tf32_load_r1(const DkvTf32Maps& maps,
 // Warpgroup wg's RS operand of query tile `tile` (dO^T, or Q^T) into its R2
 // stage: issued where `issue` holds (its first thread).
 template <int D, int BQ, int S1, int S2>
-__device__ __forceinline__ void dkv_tf32_load_r2(const DkvTf32Maps& maps,
+__device__ __forceinline__ void dkv_tf32_load_r2(const BwdTf32Maps& maps,
                                                  const BwdParams& p, int bh,
                                                  uint32_t base,
                                                  DkvTf32Barriers<S1, S2> bar,
@@ -775,7 +783,7 @@ __device__ __forceinline__ void dkv_tf32_load_r2(const DkvTf32Maps& maps,
     namespace fw = flash_wgmma;
     const int s = tile % S2;
     const uint32_t dst = base + L::kR2 + (wg * S2 + s) * L::kStage;
-    const CUtensorMap* m = &maps.m[wg == 0 ? kMapDot : kMapQt];
+    const CUtensorMap* m = &maps.m[wg == 0 ? kPlaneDot : kPlaneQt];
     fw::mbar_expect_tx_if(issue, bar.r2(wg, s), L::kStage);
 #pragma unroll
     for (int plane = 0; plane < 2; ++plane)
@@ -790,7 +798,7 @@ __device__ __forceinline__ void dkv_tf32_load_r2(const DkvTf32Maps& maps,
 // One warpgroup's side: wg 0 (S^T, P^T, dV) or 1 (dP^T, dS^T, dK).
 template <typename T, int D, int BQ, int S1, int S2>
 __device__ __forceinline__ void dkv_consume_tf32(const BwdParams& p,
-                                                 const DkvTf32Maps& maps,
+                                                 const BwdTf32Maps& maps,
                                                  unsigned char* smem,
                                                  DkvTf32Barriers<S1, S2> bar,
                                                  int bh, int k0, int wg,
@@ -908,7 +916,7 @@ __device__ __forceinline__ void dkv_consume_tf32(const BwdParams& p,
 
 template <typename T, int D, int BQ, int S1, int S2>
 __global__ void __launch_bounds__(flash_wgmma::kThreads, 1)
-flash_bwd_dkv_wgmma_kernel(const __grid_constant__ DkvTf32Maps maps,
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ BwdTf32Maps maps,
                            const BwdParams p) {
     static_assert(sizeof(T) == 4, "the float32 wgmma route");
     using L = DkvTf32Layout<D, BQ, S1, S2>;
@@ -940,7 +948,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ DkvTf32Maps maps,
         const int b = bh / p.heads;
         const int h = bh % p.heads;
         const uint32_t dst = base + L::kK + wg * 2 * L::kKvPlane;
-        const CUtensorMap* m = &maps.m[wg == 0 ? kMapK : kMapV];
+        const CUtensorMap* m = &maps.m[wg == 0 ? kPlaneK : kPlaneV];
         fw::mbar_expect_tx(bar.kv(wg), 2 * L::kKvPlane);
         for (int plane = 0; plane < 2; ++plane)
             for (int box = 0; box < D / fw::kTf32BoxCols; ++box)
@@ -1169,6 +1177,255 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                                  threadIdx.x >> 7, n_tiles);
 }
 
+// --------------------------------------------------- dQ: wgmma, float32
+// float32 at D = 64 (the CLI default's Palette training shape) as 3xTF32
+// on wgmma m64nNk8, replacing _bwd_dq_kernel (pallas_call at :290) there:
+// the bf16 route's block (two warpgroups of 64 query rows; lse and delta of
+// a thread's rows and its D/2 floats of dQ in registers for the whole loop)
+// and the float32 forward's slot ring (flash_attention.cu), every operand a
+// pair of TF32 hi and lo tiles from the split pass's planes, written once
+// per backward call for both kernels (flash_split.cu): Q, dO, K and V
+// K-major, and K^T (D rows of keys, each 8 permuted to match dS's
+// accumulator fragment) for the product that sums over keys. Thread 0
+// loads Q and dO hi and lo once, then the key tiles' groups in turn: K
+// (hi, lo) of tile i as group 3i, V as 3i + 1, K^T as 3i + 2, group n into
+// slot n % SLOTS of a ring whose slots each hold one group; a slot is
+// `full` once its bytes have landed and `empty` once every warp is done
+// with it (one arrival per warp). Per key tile a warpgroup
+//   * issues S = Q K^T and dP = dO V^T as two groups of 3 D/8 SS wgmmas,
+//     BK wide (lo x hi, hi x lo, hi x hi), both in flight at once;
+//   * forms P = exp2(s^2 log2(e) S - lse log2(e)) in S's accumulators while
+//     dP's wgmmas run, then releases K's and V's slots and forms
+//     dS = P (dP - delta) in dP's;
+//   * splits dS into TF32 hi (in place) and lo (into P's registers) and
+//     adds dS K into dQ in partials of 32 keys per 64 columns of dQ, each
+//     12 RS wgmmas (dS from registers as the A operand, K^T as B), two in
+//     flight (add_partials_tf32), releasing K^T's slot.
+// At the start of each tile thread 0 loads this tile's groups (waiting, if
+// need be, for their slots) and every later group whose slot every warp has
+// released; it issues nothing in the middle of a tile (code that only
+// thread 0 runs among the wgmmas made ptxas serialise them, C7520, in the
+// float32 forward and dkv), and the warpgroup index reaches the consumers
+// through __shfl_sync for the same reason.
+// A block is WGS warpgroups of 64 query rows (2 at D = 64).
+// What bounds it: shared memory, and the CUDA-core work between a
+// warpgroup's products (the exponential, dS, the split, the partial adds),
+// which the other warpgroup's wgmmas overlap. Q and dO hi and lo take
+// 128 KB for 128 rows and each key 1.5 KB (K, V and K^T, hi and lo), so 64
+// keys of slots in all: (BK, SLOTS) = (64, 3) at D = 64, 178 registers, one
+// tile's groups, each refilled at the next tile's start. Tried and dropped
+// (tools/flash_f32_tiles.py; PERF.md): (32, 6), a tile ahead but 32 keys
+// wide, 1.5x the time; Q hi and lo held in registers as the A operand of S
+// (RS), which frees 64 KB for 4 or 5 slots, 2-3% faster at 244 registers a
+// thread. At D = 128 Q and dO alone would take 256 KB for 128 rows: a block
+// of one warpgroup (WGS = 1, (32, 3)), what fits, took 1.3x the time of the
+// mma.sync kernel, which D = 128 keeps.
+template <int D, int BK, int SLOTS, int WGS> struct DqTf32Layout {
+    static constexpr int kBQ = 64 * WGS;
+    static constexpr int kQBox = kBQ * flash_wgmma::kRowBytes;  // bytes
+    static constexpr int kQPlane = kBQ * D * 4;
+    static constexpr int kKBox = BK * flash_wgmma::kRowBytes;  // BK rows
+    static constexpr int kTBox = D * flash_wgmma::kRowBytes;   // 32 keys
+    static constexpr int kPlane = BK * D * 4;  // K hi (K lo, V .., K^T ..)
+    static constexpr int kSlot = 2 * kPlane;   // hi and lo
+    static constexpr int kQ = 0;               // Q hi, Q lo, dO hi, dO lo
+    static constexpr int kDo = 2 * kQPlane;
+    static constexpr int kSlots = 4 * kQPlane;
+    static constexpr int kBar = kSlots + SLOTS * kSlot;
+    // barriers: Q and dO, then full and empty of each slot
+    static constexpr int kBytes = kBar + 8 * (1 + 2 * SLOTS) + 1024;
+    static_assert(kBytes <= 232448, "shared memory of one block");
+    static_assert(BK % 32 == 0 && SLOTS >= 3, "a tile's three groups");
+};
+
+// Thread 0's loads into the slot ring: group `next` on, those whose slot
+// every warp has released; it waits for a slot only while `next <= need`.
+template <int D, int BK, int SLOTS, int WGS>
+__device__ __forceinline__ void dq_tf32_produce(const BwdTf32Maps& maps,
+                                                uint32_t base,
+                                                flash_wgmma::SlotRing<SLOTS>
+                                                    bar,
+                                                int& next, int groups,
+                                                int need, int h, int b) {
+    using L = DqTf32Layout<D, BK, SLOTS, WGS>;
+    namespace fw = flash_wgmma;
+    for (; next < groups; ++next) {
+        const int s = next % SLOTS;
+        if (next >= SLOTS) {
+            const uint32_t parity = ((next / SLOTS) - 1) & 1;
+            if (next <= need)
+                fw::mbar_wait(bar.empty(s), parity);
+            else if (!fw::mbar_try_wait(bar.empty(s), parity))
+                return;
+        }
+        const uint32_t dst = base + L::kSlots + s * L::kSlot;
+        const int tile = next / 3;
+        const int kind = next % 3;  // 0 K, 1 V, 2 K^T
+        fw::mbar_expect_tx(bar.full(s), L::kSlot);
+        for (int plane = 0; plane < 2; ++plane) {
+            if (kind < 2) {  // K or V: D/32 boxes of BK rows
+                const CUtensorMap* m =
+                    &maps.m[(kind == 0 ? kPlaneK : kPlaneV) + plane];
+                for (int box = 0; box < D / fw::kTf32BoxCols; ++box)
+                    fw::tma_load(dst + plane * L::kPlane + box * L::kKBox, m,
+                                 bar.full(s), box * fw::kTf32BoxCols,
+                                 tile * BK, h, b);
+            } else {  // K^T: BK/32 boxes of D rows
+                for (int box = 0; box < BK / fw::kTf32BoxCols; ++box)
+                    fw::tma_load(dst + plane * L::kPlane + box * L::kTBox,
+                                 &maps.m[kPlaneKt + plane], bar.full(s),
+                                 tile * BK + box * fw::kTf32BoxCols, 0, h,
+                                 b);
+            }
+        }
+    }
+}
+
+// A warpgroup: query rows 64 cw .. 64 cw + 63 of the tile.
+template <typename T, int D, int BK, int SLOTS, int WGS>
+__device__ __forceinline__ void dq_consume_tf32(const BwdParams& p,
+                                                const BwdTf32Maps& maps,
+                                                uint32_t base,
+                                                flash_wgmma::SlotRing<SLOTS>
+                                                    bar,
+                                                int bh, int q0, int cw,
+                                                int n_tiles) {
+    using L = DqTf32Layout<D, BK, SLOTS, WGS>;
+    namespace fw = flash_wgmma;
+    constexpr int KT = BK / 8;   // 8-column tiles of S and dP (keys)
+    constexpr int DT = D / 8;    // 8-column tiles of dQ
+    const int lane = threadIdx.x & 31;
+    const int warp = (threadIdx.x >> 5) & 3;  // within the warpgroup
+    const int b = bh / p.heads;
+    const int h = bh % p.heads;
+    const bool producer = threadIdx.x == 0;
+    const int groups = 3 * n_tiles;
+    int next = SLOTS < groups ? SLOTS : groups;  // loaded before the loop
+    const int row0 = q0 + 64 * cw + 16 * warp;  // the warp's first query row
+    const uint32_t q_s = base + L::kQ + cw * 64 * fw::kRowBytes;
+    const uint32_t do_s = base + L::kDo + cw * 64 * fw::kRowBytes;
+
+    // lse (in log2 units) and delta of this thread's rows g and g + 8
+    const long long row = static_cast<long long>(bh) * p.t + row0
+        + (lane >> 2);
+    const float lse2[2] = {p.lse[row] * kLog2e, p.lse[row + 8] * kLog2e};
+    const float dlt[2] = {p.delta[row], p.delta[row + 8]};
+
+    float acc[DT][4];
+#pragma unroll
+    for (int i = 0; i < DT; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
+
+    fw::mbar_wait(bar.once(), 0);
+    for (int tile = 0; tile < n_tiles; ++tile) {
+        const int nk = 3 * tile;  // K's group; V's is nk + 1, K^T's nk + 2
+        const int ks = nk % SLOTS;
+        const int vs = (nk + 1) % SLOTS;
+        const int ts = (nk + 2) % SLOTS;
+        const uint32_t k_t = base + L::kSlots + ks * L::kSlot;
+        const uint32_t v_t = base + L::kSlots + vs * L::kSlot;
+        const uint32_t kt_t = base + L::kSlots + ts * L::kSlot;
+        if (producer)  // this tile's groups, and what slots are free
+            dq_tf32_produce<D, BK, SLOTS, WGS>(maps, base, bar, next, groups,
+                                               nk + 2, h, b);
+
+        // ---- S = Q K^T and dP = dO V^T, 3xTF32: rows queries, columns
+        // keys; two groups in flight
+        float sc[KT][4], dp[KT][4];
+        fw::mbar_wait(bar.full(ks), (nk / SLOTS) & 1);
+        fw::wgmma_fence();
+        fw::ss_3xtf32<BK, D>(sc, fw::opaque(q_s), L::kQBox, L::kQPlane, k_t,
+                             L::kKBox, L::kPlane);
+        fw::wgmma_commit();
+        fw::mbar_wait(bar.full(vs), ((nk + 1) / SLOTS) & 1);
+        fw::wgmma_fence();
+        fw::ss_3xtf32<BK, D>(dp, fw::opaque(do_s), L::kQBox, L::kQPlane,
+                             v_t, L::kKBox, L::kPlane);
+        fw::wgmma_commit();
+
+        // ---- P = exp2(s^2 log2(e) S - lse log2(e)) while dP runs, then
+        // dS = P (dP - delta); element c of a tile is row g + 8 (c >> 1)
+        fw::wgmma_wait<1>();
+        fw::fence_regs(sc);
+#pragma unroll
+        for (int j = 0; j < KT; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+                sc[j][c] = fw::exp2_ftz(fmaf(sc[j][c], p.logit_scale,
+                                             -lse2[c >> 1]));
+        fw::wgmma_wait<0>();
+        fw::fence_regs(dp);
+        __syncwarp();
+        if (lane == 0) {
+            fw::mbar_arrive(bar.empty(ks));
+            fw::mbar_arrive(bar.empty(vs));
+        }
+#pragma unroll
+        for (int j = 0; j < KT; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+                dp[j][c] = sc[j][c] * (dp[j][c] - dlt[c >> 1]);
+
+        // ---- dS as TF32 hi (in place) and lo (in P's registers), then
+        // dQ += dS K over this tile's keys, in partials of kPnKeys
+        fw::split_tf32_tiles(dp, dp, sc);
+        fw::mbar_wait(bar.full(ts), ((nk + 2) / SLOTS) & 1);
+        fw::add_partials_tf32<BK, D / 64, fw::kRowBytes>(
+            acc, dp, sc, kt_t, kt_t + L::kPlane, L::kTBox);
+        __syncwarp();
+        if (lane == 0) fw::mbar_arrive(bar.empty(ts));
+    }
+
+    T* dq_g = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh
+        + static_cast<long long>(row0) * p.dq_st;
+    flash_mma::store_rows<T, DT>(dq_g, p.dq_st, acc, p.grad_scale,
+                                 p.grad_scale, lane);
+}
+
+template <typename T, int D, int BK, int SLOTS, int WGS>
+__global__ void __launch_bounds__(128 * WGS, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ BwdTf32Maps maps,
+                          const BwdParams p) {
+    static_assert(sizeof(T) == 4, "the float32 wgmma route");
+    using L = DqTf32Layout<D, BK, SLOTS, WGS>;
+    namespace fw = flash_wgmma;
+    extern __shared__ unsigned char smem_raw[];
+    const uint32_t base = smem_addr(fw::align_1024(smem_raw));
+    const fw::SlotRing<SLOTS> bar{base + L::kBar};
+    const int bh = blockIdx.y;
+    const int q0 = blockIdx.x * L::kBQ;
+    const int n_tiles = p.t / BK;
+
+    if (threadIdx.x == 0) {
+        fw::mbar_init(bar.once(), 1);
+        for (int s = 0; s < SLOTS; ++s) {
+            fw::mbar_init(bar.full(s), 1);
+            fw::mbar_init(bar.empty(s), 4 * WGS);  // every warp
+        }
+        fw::fence_barrier_init();
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {  // Q and dO hi and lo, and the first groups
+        const int h = bh % p.heads;
+        const int b = bh / p.heads;
+        fw::mbar_expect_tx(bar.once(), 4 * L::kQPlane);
+        for (int plane = 0; plane < 4; ++plane)
+            for (int box = 0; box < D / fw::kTf32BoxCols; ++box)
+                fw::tma_load(base + L::kQ + plane * L::kQPlane
+                                 + box * L::kQBox,
+                             &maps.m[plane < 2 ? kPlaneQ + plane
+                                               : kPlaneDo + plane - 2],
+                             bar.once(), box * fw::kTf32BoxCols, q0, h, b);
+        int next = 0;
+        dq_tf32_produce<D, BK, SLOTS, WGS>(maps, base, bar, next,
+                                           3 * n_tiles, SLOTS - 1, h, b);
+    }
+    dq_consume_tf32<T, D, BK, SLOTS, WGS>(
+        p, maps, base, bar, bh, q0,
+        __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0), n_tiles);
+}
+
 template <typename T, int D, int BQ, int BK>
 cudaError_t launch_dq(const BwdParams& p, int batch, cudaStream_t stream) {
     constexpr int kBytes = DqLayout<T, D, BQ, BK>::kBytes;
@@ -1223,35 +1480,74 @@ cudaError_t launch_dkv_wgmma(const BwdParams& p, int batch,
     return cudaGetLastError();
 }
 
-// planes: the split pass's twelve (B, H, T, D) float32 planes, in the order
-// of DkvTf32Maps.
+// The tensor maps of the planes in `reads` (bit i: plane i) of the split
+// pass's fourteen (B, H, T, D) float32 planes at `planes`, in the order of
+// BwdTf32Maps: K-major ones in boxes of 32 columns and `q_rows` (Q, dO) or
+// `k_rows` (K, V) rows, transposed ones (D rows of T) in boxes of `t_cols`
+// columns and D rows. The maps of other planes are zero.
+cudaError_t encode_planes(BwdTf32Maps* maps, const float* planes,
+                          unsigned reads, const BwdParams& p, int batch,
+                          int d, int q_rows, int k_rows, int t_cols) {
+    namespace fw = flash_wgmma;
+    if (planes == nullptr) return cudaErrorInvalidValue;
+    memset(maps, 0, sizeof(*maps));
+    const long long n = static_cast<long long>(batch) * p.heads * p.t * d;
+    for (int i = 0; i < kPlanes; ++i) {
+        if (!((reads >> i) & 1)) continue;
+        const int op = i & ~1;  // the plane's hi
+        const bool transposed = op == kPlaneQt || op == kPlaneKt
+            || op == kPlaneDot;  // (B, H, D, T)
+        const bool keys = op == kPlaneK || op == kPlaneV;
+        const cudaError_t err = transposed
+            ? fw::encode_plane(&maps->m[i], planes + i * n, batch, p.heads,
+                               d, p.t, t_cols, d)
+            : fw::encode_plane(&maps->m[i], planes + i * n, batch, p.heads,
+                               p.t, d, fw::kTf32BoxCols,
+                               keys ? k_rows : q_rows);
+        if (err != cudaSuccess) return err;
+    }
+    return cudaSuccess;
+}
+
+// The planes each float32 wgmma kernel reads (bit i: plane i): dkv all but
+// K^T; dq Q, K, K^T, V and dO.
+constexpr unsigned kDkvReads = 0x3fffu & ~(3u << kPlaneKt);
+constexpr unsigned kDqReads = (3u << kPlaneQ) | (3u << kPlaneK)
+    | (3u << kPlaneKt) | (3u << kPlaneV) | (3u << kPlaneDo);
+
 template <int D, int BQ, int S1, int S2>
 cudaError_t launch_dkv_wgmma_tf32(const BwdParams& p, const float* planes,
                                   int batch, cudaStream_t stream) {
     using L = DkvTf32Layout<D, BQ, S1, S2>;
-    namespace fw = flash_wgmma;
-    if (planes == nullptr) return cudaErrorInvalidValue;
-    const long long n = static_cast<long long>(batch) * p.heads * p.t * D;
-    DkvTf32Maps maps;
-    cudaError_t err = cudaSuccess;
-    for (int i = 0; i < 12 && err == cudaSuccess; ++i) {
-        const bool transposed = i == kMapQt || i == kMapQt + 1
-            || i == kMapDot || i == kMapDot + 1;  // (B, H, D, T)
-        const bool kv = i >= kMapK && i < kMapDo;
-        err = transposed
-            ? fw::encode_plane(&maps.m[i], planes + i * n, batch, p.heads, D,
-                               p.t, L::kTBoxCols, D)
-            : fw::encode_plane(&maps.m[i], planes + i * n, batch, p.heads,
-                               p.t, D, fw::kTf32BoxCols, kv ? L::kBK : BQ);
-    }
+    BwdTf32Maps maps;
+    cudaError_t err = encode_planes(&maps, planes, kDkvReads, p, batch, D,
+                                    BQ, L::kBK, L::kTBoxCols);
     if (err != cudaSuccess) return err;
-    void (*kernel)(const DkvTf32Maps, const BwdParams) =
+    void (*kernel)(const BwdTf32Maps, const BwdParams) =
         flash_bwd_dkv_wgmma_kernel<float, D, BQ, S1, S2>;
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
     if (err != cudaSuccess) return err;
     const dim3 grid(p.t / L::kBK, batch * p.heads);
-    kernel<<<grid, fw::kThreads, L::kBytes, stream>>>(maps, p);
+    kernel<<<grid, flash_wgmma::kThreads, L::kBytes, stream>>>(maps, p);
+    return cudaGetLastError();
+}
+
+template <int D, int BK, int SLOTS, int WGS>
+cudaError_t launch_dq_wgmma_tf32(const BwdParams& p, const float* planes,
+                                 int batch, cudaStream_t stream) {
+    using L = DqTf32Layout<D, BK, SLOTS, WGS>;
+    BwdTf32Maps maps;
+    cudaError_t err = encode_planes(&maps, planes, kDqReads, p, batch, D,
+                                    L::kBQ, BK, flash_wgmma::kTf32BoxCols);
+    if (err != cudaSuccess) return err;
+    void (*kernel)(const BwdTf32Maps, const BwdParams) =
+        flash_bwd_dq_wgmma_kernel<float, D, BK, SLOTS, WGS>;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(p.t / L::kBQ, batch * p.heads);
+    kernel<<<grid, 128 * WGS, L::kBytes, stream>>>(maps, p);
     return cudaGetLastError();
 }
 
@@ -1285,8 +1581,8 @@ cudaError_t launch_dq_wgmma(const BwdParams& p, int batch,
 
 // Tiles, chosen so that ptxas spills nothing up to D = 128. dq (BQ queries
 // x BK keys; a thread holds dQ, D/2 registers, S and dP, BK/2 each, and the
-// products' fragments): float32 128 queries (8 warps) and 64-key tiles up to
-// D = 64, 32-key tiles at D = 128 (Q, dO and the K/V ring then take 198 KB);
+// products' fragments): float32 128 queries (8 warps) and 64-key tiles at
+// D = 32, 32-key tiles at D = 128 (Q, dO and the K/V ring then take 198 KB);
 // bfloat16 the same at D = 32, and at D = 256 64 queries and 16-key tiles
 // (float32: 195 KB). dq on wgmma (bfloat16 at D = 64 and 128; 128 queries,
 // BK keys, STAGES): (128, 3) at D = 64, (64, 3) at D = 128. dkv on mma.sync
@@ -1298,7 +1594,8 @@ cudaError_t launch_dq_wgmma(const BwdParams& p, int batch,
 // (64, 4) at D = 128; larger query tiles spill at D = 128, and 64-query
 // tiles ran slower at D = 64. dkv on wgmma, float32 (64 keys, BQ queries,
 // S1, S2): (64, 1, 1) at D = 64, (16, 1, 1) at D = 128, what shared memory
-// holds (the kernel's note).
+// holds (the kernel's note). dq on wgmma, float32 (BK keys, SLOTS, WGS
+// warpgroups of 64 query rows): (64, 3, 2) at D = 64 (the kernel's note).
 template <typename T>
 cudaError_t launch_for_d(const BwdParams& p, const float* planes, int batch,
                          int d, bool dkv, cudaStream_t stream) {
@@ -1329,7 +1626,8 @@ cudaError_t launch_for_d(const BwdParams& p, const float* planes, int batch,
             if constexpr (kBf16)
                 return launch_dq_wgmma<64, 128, 3>(p, batch, stream);
             else
-                return launch_dq<T, 64, 128, 64>(p, batch, stream);
+                return launch_dq_wgmma_tf32<64, 64, 3, 2>(p, planes, batch,
+                                                          stream);
         case 128:
             if constexpr (kBf16)
                 return launch_dq_wgmma<128, 64, 3>(p, batch, stream);
@@ -1376,20 +1674,21 @@ int launch(bool dkv, const void* q, const void* k, const void* v,
 // dtype: 0 float32, 1 bfloat16; q, k, v, dout (and dq, dk, dv) of that type,
 // lse and delta float32 (B*H, T) contiguous. t must be a multiple of 128.
 // `strides` holds 21 element strides, (batch, head, row) of q, k, v, dout,
-// dq, dk, dv in that order; the last dimension of each is contiguous. dkv's
-// `planes`: for float32 at d = 64 and 128 the split pass's planes of q
-// (K-major and transposed), k, v (K-major) and dout (both),
-// (12, batch, heads, t, d) (pai_flash_split), which that route reads
-// instead of q, k, v and dout; ignored otherwise. Each entry launches one
-// kernel on `stream`, does not synchronise, allocates nothing, and returns
-// the CUDA error code.
+// dq, dk, dv in that order; the last dimension of each is contiguous.
+// `planes`: for float32 at d = 64 and 128 the split pass's planes of q and
+// k (K-major and transposed), v (K-major) and dout (both),
+// (14, batch, heads, t, d) (pai_flash_split, one call's planes for both
+// entries), which the wgmma routes read instead of q, k, v and dout
+// (dkv at d = 64 and 128, dq at d = 64); ignored otherwise. Each entry
+// launches one kernel on `stream`, does not synchronise, allocates nothing,
+// and returns the CUDA error code.
 extern "C" int pai_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dq,
     int batch, int heads, int t, int d, int dtype, const long long* strides,
-    void* stream) {
+    const float* planes, void* stream) {
     return launch(false, q, k, v, dout, lse, delta, dq, nullptr, nullptr,
-                  batch, heads, t, d, dtype, strides, nullptr, stream);
+                  batch, heads, t, d, dtype, strides, planes, stream);
 }
 
 extern "C" int pai_flash_bwd_dkv(

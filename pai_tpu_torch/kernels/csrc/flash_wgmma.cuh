@@ -1,7 +1,7 @@
 // Hopper building blocks of the flash-attention kernels at D = 64 and
 // D = 128 (flash_attention.cu::flash_fwd_wgmma_kernel,
 // flash_attention_bwd.cu::flash_bwd_dq_wgmma_kernel and
-// flash_bwd_dkv_wgmma_kernel; the forward and dkv also in float32):
+// flash_bwd_dkv_wgmma_kernel; all three also in float32):
 // warpgroup matrix multiplies (wgmma), tile loads by the Tensor Memory
 // Accelerator (TMA) and the mbarriers that join them. sm_90a only (wgmma).
 //
@@ -51,8 +51,9 @@
 //   warp has waited for the wgmma that read it (one arrival per warp). A
 //   wait that has not ended after some 2^35 cycles (seconds) traps: a
 //   broken pipeline ends the launch with an error instead of hanging. The
-//   bf16 forward and dq share the K/V ring (KvRing, load_kv_tile); all the
-//   kernels sum their RS products over the long axis in add_partials.
+//   bf16 forward and dq share the K/V ring (KvRing, load_kv_tile), the
+//   float32 forward and dq the slot ring (SlotRing); all the kernels sum
+//   their RS products over the long axis in add_partials.
 
 #pragma once
 
@@ -765,6 +766,18 @@ template <int STAGES> struct KvRing {
     __device__ uint32_t v(int s) const { return base + 8 * (1 + STAGES + s); }
     __device__ uint32_t empty(int s) const {
         return base + 8 * (1 + 2 * STAGES + s);
+    }
+};
+
+// The barriers of a block that loads its own tiles once (`once`) and
+// streams groups of tiles through a ring of SLOTS slots, one group a slot,
+// each with a `full` and an `empty` barrier (the float32 forward and dq).
+template <int SLOTS> struct SlotRing {
+    uint32_t base;
+    __device__ uint32_t once() const { return base; }
+    __device__ uint32_t full(int s) const { return base + 8 * (1 + s); }
+    __device__ uint32_t empty(int s) const {
+        return base + 8 * (1 + SLOTS + s);
     }
 };
 

@@ -17,17 +17,18 @@ needs.
 * ``flash_attention_backward(q, k, v, o, lse, do)`` — ``(dq, dk, dv)``: on
   CUDA tensors launches kernels ``flash_bwd_dq`` and ``flash_bwd_dkv``
   (``csrc/flash_attention_bwd.cu``; ``flash_bwd_dq_wgmma_kernel`` in
-  bfloat16 at D = 64 and 128, ``flash_bwd_dkv_wgmma_kernel`` there in
-  bfloat16 and float32, else ``flash_bwd_dq_kernel`` and
-  ``flash_bwd_dkv_kernel``), which replace ``_bwd_dq_kernel`` and
-  ``_bwd_dkv_kernel``; ``delta = rowsum(do * o)`` is one PyTorch op before
-  them, as the JAX package computes it in XLA. On CPU tensors the plain
-  version.
+  bfloat16 at D = 64 and 128 and in float32 at D = 64,
+  ``flash_bwd_dkv_wgmma_kernel`` at D = 64 and 128 in bfloat16 and
+  float32, else ``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel``),
+  which replace ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``; ``delta =
+  rowsum(do * o)`` is one PyTorch op before them, as the JAX package
+  computes it in XLA, and the float32 routes' split pass runs once before
+  both. On CPU tensors the plain version.
 * ``flash_split(xs, modes)`` — the split pass (``csrc/flash_split.cu``,
   kernel ``flash_split``; it replaces no TPU kernel): the float32 operands
-  of the forward and dkv at D = 64 and 128 as TF32 hi and lo planes,
-  K-major and transposed, which their ``wgmma`` kernels read. The two
-  wrappers launch it themselves before those kernels.
+  of the forward and the backward at D = 64 and 128 as TF32 hi and lo
+  planes, K-major and transposed, which their ``wgmma`` kernels read. The
+  forward and the backward launch it themselves, once per call.
 * ``flash_attention_plain`` / ``flash_attention_backward_plain`` /
   ``flash_split_plain`` — the same functions in plain PyTorch (the first two
   blockwise, by ``pai_tpu/ops/attention.py::_blockwise_attention`` and
@@ -42,7 +43,8 @@ three kernels run on the tensor cores (989 TFLOP/s dense bf16; float32 as
 a route fixed by the operands' type and head dim in the sources'
 ``launch_for_d``: at D = 64 and 128 on Hopper's warpgroup ``wgmma`` with
 TMA tile loads (``csrc/flash_wgmma.cuh``) all three in bfloat16 and the
-forward and dkv in float32, everything else on warp-level ``mma.sync``
+forward and dkv in float32 (dq in float32 at D = 64), everything else on
+warp-level ``mma.sync``
 (``csrc/flash_mma.cuh``). No launch falls back to another route. The
 kernels' designs are described at the top of their ``.cu`` sources;
 measured times are in PERF.md.
@@ -62,7 +64,7 @@ version.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -71,15 +73,16 @@ from pai_tpu_torch import kernels
 HEAD_DIMS = (32, 64, 128, 256)
 BLOCK_Q = 128  # the kernel's query tile; T must be a multiple of it
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# float32 at these head dims: the forward and dkv on wgmma, reading the
-# split pass's planes
+# float32 at these head dims: the forward and dkv (and dq at D = 64) on
+# wgmma, reading the split pass's planes
 SPLIT_HEAD_DIMS = (64, 128)
 # what the split pass writes of an operand: its K-major hi and lo planes,
 # its transposed ones, or both (K-major first)
 SPLIT_KMAJOR, SPLIT_TRANSPOSED, SPLIT_BOTH = 1, 2, 3
-# the planes each kernel reads: q, k, v (forward); q, k, v, do (dkv)
+# the planes of one call: q, k, v (forward); q, k, v, do (the backward,
+# one split read by both dq and dkv: fourteen planes)
 FORWARD_SPLIT = (SPLIT_KMAJOR, SPLIT_KMAJOR, SPLIT_TRANSPOSED)
-DKV_SPLIT = (SPLIT_BOTH, SPLIT_KMAJOR, SPLIT_KMAJOR, SPLIT_BOTH)
+BACKWARD_SPLIT = (SPLIT_BOTH, SPLIT_BOTH, SPLIT_KMAJOR, SPLIT_BOTH)
 # position p of each group of 8 rows of a transposed plane holds row
 # _SPLIT_ORDER[p]: the order of the columns in a TF32 A fragment's k slots
 _SPLIT_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
@@ -324,8 +327,9 @@ def flash_split(xs, modes) -> torch.Tensor:
 
 
 def _splits(x: torch.Tensor) -> bool:
-    """Whether the forward and dkv read split planes of ``x``'s type and
-    head dim (float32 at D = 64 and 128: their wgmma route)."""
+    """Whether a call on ``x``'s type and head dim splits its operands
+    (float32 at D = 64 and 128: the wgmma routes of the forward, dkv and,
+    at D = 64, dq)."""
     return x.dtype == torch.float32 and x.shape[-1] in SPLIT_HEAD_DIMS
 
 
@@ -349,7 +353,7 @@ def _backward_library() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         strides = ctypes.POINTER(ctypes.c_longlong)
         lib.pai_flash_bwd_dq.argtypes = (
-            [ptr] * 7 + [i32] * 5 + [strides, ptr])
+            [ptr] * 7 + [i32] * 5 + [strides, ptr, ptr])
         lib.pai_flash_bwd_dkv.argtypes = (
             [ptr] * 8 + [i32] * 5 + [strides, ptr, ptr])
         lib.pai_flash_bwd_dq.restype = i32
@@ -432,13 +436,16 @@ class BackwardLaunch(NamedTuple):
     dv: torch.Tensor
     keep: tuple        # tensors the pointers point into
     flops: Tuple[int, int]
+    planes: Optional[torch.Tensor]  # the split pass's, where a route reads
+                                    # them (float32 at D = 64 and 128)
 
 
 def prepare_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor
                      ) -> BackwardLaunch:
-    """Check the CUDA operands, compute ``delta`` and allocate the
-    token-major outputs of one backward call."""
+    """Check the CUDA operands, compute ``delta``, allocate the token-major
+    outputs of one backward call and, where its routes read split planes,
+    run the split pass once for both kernels."""
     b, h, t, d = q.shape
     if b * h > 65535:
         raise ValueError(
@@ -450,6 +457,8 @@ def prepare_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lse.data_ptr() % 16:  # the dkv kernels copy lse rows 16 bytes at a time
         lse = lse.clone()
     delta = _delta(o, do)
+    planes = flash_split((q, k, v, do), BACKWARD_SPLIT) if _splits(q) \
+        else None
     dq, dk, dv = (_token_major(b, h, t, d, q) for _ in range(3))
     strides = (ctypes.c_longlong * 21)(*(
         s for x in (q, k, v, do, dq, dk, dv) for s in x.stride()[:3]))
@@ -459,7 +468,11 @@ def prepare_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 lse.data_ptr(), delta.data_ptr()),
         common=(b, h, t, d, _DTYPE_CODES[q.dtype], strides),
         dq=dq, dk=dk, dv=dv, keep=(q, k, v, do, lse, delta),
-        flops=flash_attention_backward_flops(q.shape))
+        flops=flash_attention_backward_flops(q.shape), planes=planes)
+
+
+def _planes_pointer(call: BackwardLaunch) -> Optional[int]:
+    return None if call.planes is None else call.planes.data_ptr()
 
 
 def launch_dq(call: BackwardLaunch) -> None:
@@ -467,23 +480,20 @@ def launch_dq(call: BackwardLaunch) -> None:
     with torch.cuda.device(call.dq.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = call.lib.pai_flash_bwd_dq(*call.inputs, call.dq.data_ptr(),
-                                         *call.common, stream)
+                                         *call.common, _planes_pointer(call),
+                                         stream)
     kernels.check_launch(code, "flash_bwd_dq")
     kernels.launch_counts["flash_bwd_dq"] += 1
     kernels.launched_flops += call.flops[0]
 
 
 def launch_dkv(call: BackwardLaunch) -> None:
-    """Kernel ``flash_bwd_dkv`` into ``call.dk`` and ``call.dv`` (after the
-    split pass where its route reads split planes)."""
-    q, k, v, do = call.keep[:4]
-    planes = flash_split((q, k, v, do), DKV_SPLIT) if _splits(q) else None
+    """Kernel ``flash_bwd_dkv`` into ``call.dk`` and ``call.dv``."""
     with torch.cuda.device(call.dq.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = call.lib.pai_flash_bwd_dkv(
             *call.inputs, call.dk.data_ptr(), call.dv.data_ptr(),
-            *call.common, None if planes is None else planes.data_ptr(),
-            stream)
+            *call.common, _planes_pointer(call), stream)
     kernels.check_launch(code, "flash_bwd_dkv")
     kernels.launch_counts["flash_bwd_dkv"] += 1
     kernels.launched_flops += call.flops[1]

@@ -22,13 +22,15 @@ The float32 sums here round to nearest. The tensor cores add into their
 accumulators with truncation, which the kernels counter with partial sums of
 32 keys; that is held on the card by ``chip_smoke.py``, not here.
 
-The float32 forward and dkv at D = 64 and 128 run on wgmma, on the planes of
-the split pass (``kernels.flash_attention.flash_split``): hi rounded to
-TF32 to nearest as above (left to the tensor core's truncation, the forward
-and dkv land at up to 3.3 times the plain version's error on these cases,
-outside the gate), the sums over keys (queries in dkv) in partials of 32.
-Their emulation is held to the same gate with its one-term control, and
-the split pass's plain version is pinned: planes, transposition and the
+The float32 forward and dkv at D = 64 and 128, and dq at D = 64, run on
+wgmma, on the planes of the split pass
+(``kernels.flash_attention.flash_split``, one pass per backward call for
+dq and dkv): hi rounded to TF32 to nearest as above (left to the tensor
+core's truncation, the forward and dkv land at up to 3.3 times the plain
+version's error on these cases, outside the gate), the sums over keys
+(queries in dkv) in partials of 32. Their emulation is held to the same
+gate with its one-term control, and the split pass's plain version is
+pinned: the backward's fourteen planes in order, transposition and the
 order of each 8 rows, inverted back to the operands bit for bit.
 """
 
@@ -105,16 +107,22 @@ def emulate_forward(q, k, v, mm_qk, mm_pv, block_k=BLOCK_K):
     return acc / l, lse.reshape(b * h, t)
 
 
-def emulate_dq(q, k, v, do, lse, delta, mm_qk, mm_dsk):
-    """The dq kernel: S = Q K^T, dP = dO V^T, P, dS, then dQ = s^2 dS K
-    (dS straight from the accumulator, as the A operand)."""
+def emulate_dq(q, k, v, do, lse, delta, mm_qk, mm_dsk, block_k=None):
+    """The dq kernel: per key tile of `block_k` keys (all of them by
+    default) S = Q K^T, dP = dO V^T, P, dS, then dQ += dS K (dS straight
+    from the accumulator, as the A operand), dQ times s^2 at the end."""
     b, h, t, d = q.shape
-    s = mm_qk(q, k.transpose(-1, -2))
-    dp = mm_qk(do, v.transpose(-1, -2))
+    block_k = block_k or t
     lse2 = lse.reshape(b, h, t, 1) * LOG2E
-    p = torch.exp2(s * (LOG2E / d ** 0.5) - lse2)
-    ds = p * (dp - delta.reshape(b, h, t, 1))
-    return mm_dsk(ds, k) * d ** -0.5
+    acc = torch.zeros((b, h, t, d))
+    for k0 in range(0, t, block_k):
+        kt, vt = k[:, :, k0:k0 + block_k], v[:, :, k0:k0 + block_k]
+        s = mm_qk(q, kt.transpose(-1, -2))
+        dp = mm_qk(do, vt.transpose(-1, -2))
+        p = torch.exp2(s * (LOG2E / d ** 0.5) - lse2)
+        ds = p * (dp - delta.reshape(b, h, t, 1))
+        acc = acc + mm_dsk(ds, kt)
+    return acc * d ** -0.5
 
 
 def emulate_dkv(q, k, v, do, lse, delta, mm_kq, mm_pd):
@@ -279,6 +287,9 @@ def test_tf32_rounding_is_round_to_nearest_even():
 # ---------------------------------------------------------------------------
 PARTIAL = 32  # kPnKeys
 WGMMA_BLOCK_K = {64: 64, 128: 32}  # the float32 forward's key tile per D
+# the float32 dq (64-key tiles at D = 64) adds each 32-key partial of
+# dS K into dQ in turn, so its sum is emulated one 32-key tile at a time
+WGMMA_DQ_BLOCK_K = PARTIAL
 
 
 def mm_3xtf32_partials(a, b):
@@ -293,11 +304,11 @@ def mm_3xtf32_partials(a, b):
 
 @pytest.mark.parametrize("shape,seed,peak", CASES)
 def test_wgmma_3xtf32_within_twice_the_float32_error(shape, seed, peak):
-    """The float32 wgmma route's arithmetic, forward (o, lse) and dkv (dk,
-    dv), within twice the plain float32 version's error against float64;
-    TF32 alone (one term) far outside."""
+    """The float32 wgmma route's arithmetic, forward (o, lse), dq and dkv
+    (dk, dv), within twice the plain float32 version's error against
+    float64; TF32 alone (one term) far outside."""
     q, k, v, do = inputs(shape, seed, peak)
-    o64, lse64, dk64, dv64, _ = reference64(q, k, v, do)
+    o64, lse64, dk64, dv64, dq64 = reference64(q, k, v, do)
     block_k = WGMMA_BLOCK_K.get(shape[-1], 64)
     o, lse = emulate_forward(q, k, v, mm_3xtf32, mm_3xtf32_partials,
                                    block_k)
@@ -307,9 +318,12 @@ def test_wgmma_3xtf32_within_twice_the_float32_error(shape, seed, peak):
     delta = fa._delta(plain_o, do)
     dk, dv = emulate_dkv(q, k, v, do, plain_lse, delta, mm_3xtf32,
                          mm_3xtf32_partials)
-    _, plain_dk, plain_dv = fa.flash_attention_backward_plain(
+    dq = emulate_dq(q, k, v, do, plain_lse, delta, mm_3xtf32,
+                    mm_3xtf32_partials, WGMMA_DQ_BLOCK_K)
+    plain_dq, plain_dk, plain_dv = fa.flash_attention_backward_plain(
         q, k, v, plain_o, plain_lse, do)
-    for got, plain, ref in ((dk, plain_dk, dk64), (dv, plain_dv, dv64)):
+    for got, plain, ref in ((dk, plain_dk, dk64), (dv, plain_dv, dv64),
+                            (dq, plain_dq, dq64)):
         assert max_err(got, ref) <= 2.0 * max_err(plain, ref)
 
     def one_term(a, b):
@@ -321,6 +335,9 @@ def test_wgmma_3xtf32_within_twice_the_float32_error(shape, seed, peak):
                            one_term)
     assert max_err(dk1, dk64) > 8.0 * max_err(plain_dk, dk64)
     assert max_err(dv1, dv64) > 8.0 * max_err(plain_dv, dv64)
+    dq1 = emulate_dq(q, k, v, do, plain_lse, delta, one_term, one_term,
+                     WGMMA_DQ_BLOCK_K)
+    assert max_err(dq1, dq64) > 8.0 * max_err(plain_dq, dq64)
 
 
 def _packed_operands(seed, t=256, heads=2, d=64):
@@ -337,23 +354,29 @@ def _packed_operands(seed, t=256, heads=2, d=64):
 @pytest.mark.parametrize("d", [64, 128])
 def test_split_planes_invert_to_the_operands(d):
     """The split pass's plain version on packed views: per operand its
-    K-major hi and lo, then its transposed ones, in dkv's order; hi is the
-    operand rounded to TF32 (to nearest even), hi + lo is the operand bit
-    for bit, and each transposed plane, its groups of 8 rows put back in
-    order and transposed, is the K-major one."""
+    K-major hi and lo, then its transposed ones, in the backward's order
+    (q, k both; v K-major; do both: fourteen planes, read by dq and dkv);
+    hi is the operand rounded to TF32 (to nearest even), hi + lo is the
+    operand bit for bit, and each transposed plane, its groups of 8 rows put
+    back in order and transposed, is the K-major one."""
     xs = _packed_operands(20 + d, d=d)
     assert not xs[0].is_contiguous()
-    planes = fa.flash_split(xs, fa.DKV_SPLIT)  # CPU tensors: the plain one
-    assert torch.equal(planes, fa.flash_split_plain(xs, fa.DKV_SPLIT))
-    assert planes.shape == (fa.split_planes(fa.DKV_SPLIT), xs[0].numel())
-    assert planes.shape[0] == 12
+    modes = fa.BACKWARD_SPLIT
+    planes = fa.flash_split(xs, modes)  # CPU tensors: the plain one
+    assert torch.equal(planes, fa.flash_split_plain(xs, modes))
+    assert planes.shape == (fa.split_planes(modes), xs[0].numel())
+    assert planes.shape[0] == 14
+    assert modes == (fa.SPLIT_BOTH, fa.SPLIT_BOTH, fa.SPLIT_KMAJOR,
+                     fa.SPLIT_BOTH)
     b, h, t, _ = xs[0].shape
     # the order in which the accumulator's fragment holds 8 columns
     order = torch.tensor([0, 2, 4, 6, 1, 3, 5, 7])
     inverse = torch.argsort((torch.arange(0, t, 8)[:, None] + order)
                             .reshape(t))
     at = 0
-    for x, mode in zip(xs, fa.DKV_SPLIT):
+    firsts = []  # each operand's first plane
+    for x, mode in zip(xs, modes):
+        firsts.append(at)
         kmajor = []
         if mode & fa.SPLIT_KMAJOR:
             hi, lo = (planes[at + i].view(b, h, t, d) for i in range(2))
@@ -371,6 +394,9 @@ def test_split_planes_invert_to_the_operands(d):
                 assert torch.equal(got, want)
             at += 2
     assert at == planes.shape[0]
+    # in order: q hi, lo, q^T hi, lo (0-3); k, k^T (4-7); v (8, 9); do,
+    # do^T (10-13), as the kernels index them
+    assert firsts == [0, 4, 8, 10]
     # the forward's planes: q and k K-major, v transposed
     forward = fa.flash_split(xs[:3], fa.FORWARD_SPLIT)
     assert torch.equal(forward[:4], planes[[0, 1, 4, 5]])

@@ -1,23 +1,26 @@
-"""float32 flash_fwd and flash_bwd_dkv at D = 64 and 128 (their wgmma
-route, on the split pass's planes) on one card: ptxas's report, agreement
-with the plain versions, and times beside another checkout's.
+"""float32 flash_fwd, flash_bwd_dq and flash_bwd_dkv at D = 64 and 128
+(their wgmma routes, on the split pass's planes) on one card: ptxas's
+report, agreement with the plain versions, and times beside another
+checkout's.
 
     python3 tools/flash_f32_probe.py [--quick] [--tree DIR]
 
 Prints one JSON line with ptxas's resource lines of the float32 wgmma
 instantiations and the split pass (and any ptxas line that says wgmma was
 serialised); then per case (the Palette paths' shapes, float32, and small
-ones) the largest difference of o and lse (forward) or dk and dv (dkv,
-from the plain forward's o and lse) from the plain version, whether two
-launches are bit-equal, and whether the split pass's planes equal its plain
-version's bit for bit. ``--quick`` stops there (a first check of a build:
-small shapes only). Otherwise it times, by CUDA events (the median of 5
-samples of 3 calls, as ``chip_smoke.py`` times them), the forward wrapper,
-``launch_dkv`` (split pass included) and the split pass alone at the
-Palette paths' float32 shapes; with ``--tree`` the same wrappers of another
-checkout (an unpacked ``git archive`` of an earlier commit) in processes of
-their own, in the order tree, this, this, tree. Then the card's name and
-power limit. Needs one NVIDIA GPU."""
+ones) the largest difference of o and lse (forward) or dq, dk and dv
+(backward, from the plain forward's o and lse) from the plain version,
+whether two launches are bit-equal, and whether the split pass's planes
+equal its plain version's bit for bit. ``--quick`` stops there (a first
+check of a build: small shapes only). Otherwise it times, by CUDA events
+(the median of 5 samples of 3 calls, as ``chip_smoke.py`` times them), the
+forward wrapper, the whole backward, ``launch_dq``, ``launch_dkv`` (a
+checkout that splits in ``launch_dkv`` counts its split pass there; this
+one splits once in ``prepare_backward``) and the split pass alone at the
+Palette paths' float32 shapes; with ``--tree`` the same wrappers of
+another checkout (an unpacked ``git archive`` of an earlier commit) in
+processes of their own, in the order tree, this, this, tree. Then the
+card's name and power limit. Needs one NVIDIA GPU."""
 
 import argparse
 import json
@@ -59,9 +62,15 @@ def time_ms(fn, samples=5, calls=3):
     return statistics.median(out)
 
 
+def backward_split(fa):
+    """The split modes of a backward call (before one split per backward,
+    dkv's alone)."""
+    return getattr(fa, "BACKWARD_SPLIT", None) or fa.DKV_SPLIT
+
+
 def timings(fa):
-    """{what: ms} of the forward and dkv wrappers (and the split pass, where
-    this checkout has one) at the Palette paths' float32 shapes."""
+    """{what: ms} of the forward and backward wrappers (and the split pass,
+    where this checkout has one) at the Palette paths' float32 shapes."""
     out = {}
     for shape in FWD_SHAPES:
         q, k, v = operands(shape, 1, 3)
@@ -74,10 +83,13 @@ def timings(fa):
         q, k, v, do = operands(shape, 2)
         o, lse = fa.flash_attention(q, k, v, emit_lse=True)
         call = fa.prepare_backward(q, k, v, o, lse, do)
+        out[f"flash_backward {shape}"] = time_ms(
+            lambda: fa.flash_attention_backward(q, k, v, o, lse, do))
+        out[f"flash_bwd_dq {shape}"] = time_ms(lambda: fa.launch_dq(call))
         out[f"flash_bwd_dkv {shape}"] = time_ms(lambda: fa.launch_dkv(call))
         if hasattr(fa, "flash_split"):
-            out[f"flash_split dkv {shape}"] = time_ms(
-                lambda: fa.flash_split((q, k, v, do), fa.DKV_SPLIT))
+            out[f"flash_split backward {shape}"] = time_ms(
+                lambda: fa.flash_split((q, k, v, do), backward_split(fa)))
         del q, k, v, do, o, lse, call
     torch.cuda.empty_cache()
     return out
@@ -115,17 +127,16 @@ def check_case(fa, shape, seed):
              "lse_err": float((lse - want_lse).abs().max()),
              "fwd_bit_equal": bool(torch.equal(o, o2)
                                    and torch.equal(lse, lse2))}
-    _, want_dk, want_dv = fa.flash_attention_backward_plain(
-        q, k, v, want_o, want_lse, do)
-    _, dk, dv = fa.flash_attention_backward(q, k, v, want_o, want_lse, do)
-    _, dk2, dv2 = fa.flash_attention_backward(q, k, v, want_o, want_lse, do)
+    want = fa.flash_attention_backward_plain(q, k, v, want_o, want_lse, do)
+    got = fa.flash_attention_backward(q, k, v, want_o, want_lse, do)
+    again = fa.flash_attention_backward(q, k, v, want_o, want_lse, do)
     torch.cuda.synchronize()
-    entry.update(
-        dk_rel_err=float((dk - want_dk).abs().max() / want_dk.abs().max()),
-        dv_rel_err=float((dv - want_dv).abs().max() / want_dv.abs().max()),
-        dkv_bit_equal=bool(torch.equal(dk, dk2) and torch.equal(dv, dv2)))
+    for tag, g, w in zip(("dq", "dk", "dv"), got, want):
+        entry[f"{tag}_rel_err"] = float((g - w).abs().max() / w.abs().max())
+    entry["backward_bit_equal"] = all(torch.equal(a, b)
+                                      for a, b in zip(got, again))
     for tag, xs, modes in (("fwd", (q, k, v), fa.FORWARD_SPLIT),
-                           ("dkv", (q, k, v, do), fa.DKV_SPLIT)):
+                           ("backward", (q, k, v, do), backward_split(fa))):
         entry[f"split_{tag}_bit_equal"] = bool(torch.equal(
             fa.flash_split(xs, modes), fa.flash_split_plain(xs, modes)))
     return entry

@@ -1,13 +1,17 @@
-"""The float32 flash_fwd and flash_bwd_dkv on wgmma (D = 64 and 128) at
-other tiles than the ones ``launch_for_d`` picks, timed beside this
-checkout's on one card in one process.
+"""The float32 flash_fwd, flash_bwd_dq and flash_bwd_dkv on wgmma (D = 64
+and 128) at other tiles than the ones ``launch_for_d`` picks, timed beside
+this checkout's on one card in one process.
 
     python3 tools/flash_f32_tiles.py [--variants fwd:64:64:4,dkv:64:64:1:1]
 
 A variant ``fwd:D:BK:SLOTS`` is a copy of this checkout's ``csrc/`` with that
 D's ``launch_wgmma_tf32<D, BK, SLOTS>`` rewritten in
 ``flash_attention.cu``'s ``launch_for_d``; ``dkv:D:BQ:S1:S2`` rewrites
-``launch_dkv_wgmma_tf32<D, BQ, S1, S2>`` in ``flash_attention_bwd.cu``'s.
+``launch_dkv_wgmma_tf32<D, BQ, S1, S2>`` in ``flash_attention_bwd.cu``'s;
+``dq:D:BK:SLOTS:WGS`` puts ``launch_dq_wgmma_tf32<D, BK, SLOTS, WGS>`` in
+place of that D's float32 dq launch (whichever route it is), and
+``dq:D:mma:BQ:BK`` puts the ``mma.sync`` kernel ``launch_dq<T, D, BQ, BK>``
+there.
 All are built at once with the port's nvcc flags. Prints one JSON line per
 library: ptxas's registers and spills of every flash instantiation and
 whether ptxas serialised a kernel's wgmmas (C7520). Then each variant is
@@ -33,12 +37,36 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = {("fwd", 64): (2, 4, 16384, 64), ("fwd", 128): (2, 4, 4096, 128),
+          ("dq", 64): (4, 4, 16384, 64), ("dq", 128): (4, 4, 4096, 128),
           ("dkv", 64): (4, 4, 16384, 64), ("dkv", 128): (4, 4, 4096, 128)}
-SOURCE = {"fwd": "flash_attention.cu", "dkv": "flash_attention_bwd.cu"}
-LIBRARY = {"fwd": "flash_attention", "dkv": "flash_attention_bwd"}
+SOURCE = {"fwd": "flash_attention.cu", "dq": "flash_attention_bwd.cu",
+          "dkv": "flash_attention_bwd.cu"}
+LIBRARY = {"fwd": "flash_attention", "dq": "flash_attention_bwd",
+           "dkv": "flash_attention_bwd"}
 LAUNCH = {"fwd": "launch_wgmma_tf32", "dkv": "launch_dkv_wgmma_tf32"}
-DEFAULT_VARIANTS = ("fwd:64:64:4,fwd:64:32:8,fwd:64:128:2,"
-                    "dkv:64:32:1:1,dkv:64:64:1:1,dkv:64:16:3:3")
+DEFAULT_VARIANTS = "dq:64:32:6:2,dq:64:mma:128:64,dq:128:32:3:1"
+
+
+def rewrite(kind, d, tiles, own):
+    """``own`` (a source's text) with the float32 launch of `kind` at head
+    dim `d` rewritten to the variant's tiles."""
+    if kind == "dq":
+        # the float32 dq launch at d: launch_dq_wgmma_tf32<d, ...>(p,
+        # planes, batch, stream) or the mma.sync launch_dq<T, d, ...>
+        pattern = (rf"launch_dq(?:_wgmma_tf32<{d}|<T, {d})(?:, \d+)+>"
+                   r"\(p, (?:planes, )?batch,\s*stream\)")
+        if tiles[0] == "mma":
+            new = (f"launch_dq<T, {d}, {', '.join(tiles[1:])}>(p, batch, "
+                   "stream)")
+        else:
+            new = (f"launch_dq_wgmma_tf32<{d}, {', '.join(tiles)}>(p, planes, "
+                   "batch, stream)")
+    else:
+        pattern = rf"{LAUNCH[kind]}<{d}(, \d+)+>"
+        new = f"{LAUNCH[kind]}<{d}, {', '.join(tiles)}>"
+    if len(re.findall(pattern, own)) != 1:
+        raise SystemExit(f"no single float32 {kind} launch at D = {d}")
+    return re.sub(pattern, new, own)
 
 
 def ptxas(log):
@@ -77,20 +105,16 @@ def main():
         kind, d, *tiles = spec.split(":")
         with open(os.path.join(csrc_dir, SOURCE[kind])) as f:
             own = f.read()
-        pattern = rf"{LAUNCH[kind]}<{d}(, \d+)+>"
-        if len(re.findall(pattern, own)) != 1:
-            raise SystemExit(f"no single {kind} launch at D = {d}")
-        variants[spec.replace(":", "_")] = (kind, int(d), re.sub(
-            pattern, f"{LAUNCH[kind]}<{d}, {', '.join(tiles)}>", own))
+        variants[spec.replace(":", "_")] = (kind, int(d),
+                                            rewrite(kind, d, tiles, own))
 
     fa._library()
     fa._backward_library()
     fa._split_library()
     own = {kind: kernels._libraries[LIBRARY[kind]] for kind in LIBRARY}
-    for kind in LIBRARY:
-        print(json.dumps({"library": f"own {kind}",
-                          **ptxas(kernels.build_log(LIBRARY[kind]))}),
-              flush=True)
+    for lib in sorted(set(LIBRARY.values())):
+        print(json.dumps({"library": f"own {lib}",
+                          **ptxas(kernels.build_log(lib))}), flush=True)
     libs = {}
     with tempfile.TemporaryDirectory(prefix="pai_f32_tiles_") as workdir:
         jobs = {}
@@ -132,17 +156,19 @@ def main():
                     kernels._libraries["flash_attention"] = lib
                     return fa.flash_attention(q, k, v)
             else:
+                # dq, or dk of dkv, from the call's split planes (made once
+                # by prepare_backward, as the backward makes them)
                 o, lse = fa.flash_attention(q, k, v, emit_lse=True)
-                want = fa.flash_attention_backward_plain(q, k, v, o, lse,
-                                                         do)[1]
+                want = fa.flash_attention_backward_plain(
+                    q, k, v, o, lse, do)[0 if kind == "dq" else 1]
                 call = fa.prepare_backward(q, k, v, o, lse, do)
-                fa.launch_dkv(call)
-                ref = call.dk.clone()
+                launch = fa.launch_dq if kind == "dq" else fa.launch_dkv
 
                 def run(lib):
                     mine = call._replace(lib=lib)
-                    fa.launch_dkv(mine)
-                    return mine.dk
+                    launch(mine)
+                    return mine.dq if kind == "dq" else mine.dk
+                ref = run(own[kind]).clone()
             for tag in ["own", *tags, "own_again"]:
                 lib = own[kind] if tag.startswith("own") else libs[tag]
                 got = run(lib).clone()
